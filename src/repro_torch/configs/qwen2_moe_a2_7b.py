@@ -1,0 +1,12 @@
+"""Qwen1.5-MoE-A2.7B.  [hf:Qwen/Qwen1.5-MoE-A2.7B]
+24L d_model=2048 16H (kv=16, head_dim=128) vocab=151936.
+MoE: 60 routed experts (d_ff 1408 each) top-4 + 4 shared experts."""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-moe-a2.7b", family="moe",
+    num_layers=24, d_model=2048, num_heads=16, num_kv_heads=16, head_dim=128,
+    d_ff=1408, vocab_size=151936,
+    num_experts=60, num_experts_per_tok=4, num_shared_experts=4,
+    moe_d_ff=1408, tie_embeddings=False, max_seq_len=32_768,
+)

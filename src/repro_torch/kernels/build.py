@@ -1,0 +1,67 @@
+"""Builds the port's CUDA sources into shared libraries and loads them.
+
+Each `csrc/<name>.cu` has a plain C interface: `nvcc` compiles it for
+Hopper (`sm_90a`) into `build/<name>-<hash>.so` beside this file, where the
+hash covers the source and the flags, and `ctypes` loads it.  Nothing
+includes PyTorch's headers, so a build takes seconds.  A build runs at a
+kernel's first launch, never at import; `build(name, force=True)` rebuilds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit on the machine with the card")
+    return path
+
+
+def library_path(name: str) -> Path:
+    source = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(name: str, force: bool = False) -> tuple[Path, str]:
+    """Compile csrc/<name>.cu unless its library is built already.
+    Returns (library path, nvcc's log); raises with the log on failure."""
+    out = library_path(name)
+    if out.exists() and not force:
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    path, _ = build(name)
+    return ctypes.CDLL(str(path))

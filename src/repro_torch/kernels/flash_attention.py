@@ -1,0 +1,114 @@
+"""Flash attention forward: the wrapper around the Hopper kernel.
+
+The kernel, `csrc/flash_attention.cu`, replaces the Pallas TPU kernel
+`_flash_kernel` in src/repro/kernels/flash_attention.py; its source says what
+bounds it on an H100 and how the design answers that.  Unlike the Pallas
+kernel it takes any Sq and Skv: ragged tails are masked inside the kernel.
+
+`flash_attention` on CUDA tensors launches the kernel (building it at first
+use) or raises; on CPU tensors it computes the plain version,
+`ref.mha_reference`.  `KERNEL.launches` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import build
+from .ref import mha_reference
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# repro_flash_attention_fwd's C parameters: q, k, v, o; dtype, b, h, hkv,
+# sq, skv, d; the strides (b, h, s) of q, k, v, o; causal, window,
+# prefix_len; logit_cap; stream
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12
+            + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+
+
+class _Kernel:
+    """The loaded library and its launch count."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self._lib = None
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = build.load(self.name)
+            fn = lib.repro_flash_attention_fwd
+            fn.argtypes = ARGTYPES
+            fn.restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+
+KERNEL = _Kernel("flash_attention")
+
+
+def _check(q, k, v, window, prefix_len, logit_cap) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B,H,S,D]")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does "
+                         f"not match q {tuple(q.shape)}")
+    hkv = k.shape[1]
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must be on one device")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    if logit_cap is not None and not logit_cap > 0:
+        raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: int = 0,
+                    logit_cap: Optional[float] = None) -> torch.Tensor:
+    """q: [B,H,Sq,D]; k, v: [B,Hkv,Skv,D] -> [B,H,Sq,D] in q's dtype.
+    The output has q's strides, so a transposed view of a [B,S,H,D] tensor
+    gives an output whose transpose is contiguous."""
+    _check(q, k, v, window, prefix_len, logit_cap)
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, causal=causal, window=window,
+                             prefix_len=prefix_len, logit_cap=logit_cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the head dim of q, k, v must be contiguous")
+    if q.numel() == 0 or skv == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    out = torch.empty_like(q)
+    lib = KERNEL.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, h, hkv, sq, skv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            int(causal), window or 0, prefix_len, logit_cap or 0.0, stream)
+    if err:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: CUDA error {err} "
+            f"({lib.repro_cuda_error_string(err).decode()})")
+    KERNEL.launches += 1
+    return out

@@ -1,0 +1,65 @@
+"""Serving entry point on one card: random weights from --seed + batched engine.
+Counterpart of src/repro/launch/serve.py for --model-parallel 1.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+        --reduced --device cpu
+
+Runs on CUDA unless --device cpu is given; without a card it raises.
+Params are bf16 at full size and fp32 with --reduced.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional, Sequence
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--new-tokens", type=int, default=12)
+    ap.add_argument("--batch-size", type=int, default=2)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import resolve_device
+    from repro_torch.serve import Request, ServingEngine
+
+    device = resolve_device(args.device)
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(args.seed,
+                        torch.float32 if args.reduced else torch.bfloat16,
+                        device)
+    engine = ServingEngine(model, params, batch_size=args.batch_size,
+                           max_len=args.max_len)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        plen = int(rng.integers(4, 24))
+        engine.submit(Request(
+            uid=i,
+            prompt=rng.integers(1, cfg.vocab_size, plen, dtype=np.int32),
+            max_new_tokens=args.new_tokens))
+    for c in engine.run():
+        print(f"req {c.uid}: {c.prompt_len} prompt -> "
+              f"{len(c.tokens) - c.prompt_len} new tokens "
+              f"({c.latency_s * 1e3:.0f} ms batch)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,114 @@
+"""Batched serving engine: request queue -> padded batch -> prefill ->
+decode loop.  Counterpart of src/repro/serve/engine.py, same semantics.
+
+Static batching with greedy sampling: requests are grouped into batches of
+`batch_size`, prompts are left-padded with token 0 (the pad is not masked) to
+a common length, prefill fills the KV cache, then one decode step per
+generated token.  A sequence stops at EOS or at its budget.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models.model_zoo import Model
+from repro_torch.models.transformer import DecoderLM
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray               # [S] int32
+    max_new_tokens: int = 32
+
+
+@dataclasses.dataclass
+class Completion:
+    uid: int
+    tokens: np.ndarray
+    prompt_len: int
+    latency_s: float
+
+
+class ServingEngine:
+    """Runs on the device of `params`.  The KV caches are in `dtype` (fp32 by
+    default, also when the params are bf16).  `stats` sums, over all batches,
+    the seconds spent in prefill and in decode (each ends when the sampled
+    tokens reach the host) and the token positions each processed."""
+
+    def __init__(self, model: Model, params: DecoderLM, *,
+                 batch_size: int = 4, max_len: int = 512, eos_id: int = -1,
+                 dtype=torch.float32):
+        self.model = model
+        self.params = params
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.dtype = dtype
+        self.device = params.embed.device
+        self.queue: List[Request] = []
+        self.stats = dict(prefill_s=0.0, decode_s=0.0, prefill_tokens=0,
+                          decode_tokens=0)
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    # ------------------------------------------------------------------ #
+    def run(self) -> List[Completion]:
+        done: List[Completion] = []
+        while self.queue:
+            batch = self.queue[:self.batch_size]
+            self.queue = self.queue[self.batch_size:]
+            done.extend(self._run_batch(batch))
+        return done
+
+    @torch.inference_mode()
+    def _run_batch(self, reqs: Sequence[Request]) -> List[Completion]:
+        t0 = time.perf_counter()
+        bsz = len(reqs)
+        plen = max(len(r.prompt) for r in reqs)
+        budget = max(r.max_new_tokens for r in reqs)
+        # left-pad so the last prompt token is aligned at plen-1
+        toks = np.zeros((bsz, plen), np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, plen - len(r.prompt):] = r.prompt
+
+        state = self.model.init_decode_state(
+            bsz, min(self.max_len, plen + budget + 1), self.dtype,
+            self.device)
+        feed = {"tokens": torch.from_numpy(toks).to(self.device)}
+        state, logits = self.model.prefill(self.params, feed, state)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        host_tok = tok.cpu().numpy()
+        t1 = time.perf_counter()
+        self.stats["prefill_s"] += t1 - t0
+        self.stats["prefill_tokens"] += bsz * plen
+
+        out = [list(r.prompt) for r in reqs]
+        alive = np.ones(bsz, bool)
+        for step in range(budget):
+            for i in range(bsz):
+                if alive[i]:
+                    t = int(host_tok[i, 0])
+                    out[i].append(t)
+                    if t == self.eos_id or \
+                            len(out[i]) - len(reqs[i].prompt) >= \
+                            reqs[i].max_new_tokens:
+                        alive[i] = False
+            if not alive.any() or step == budget - 1:
+                break
+            logits, state = self.model.decode_step(
+                self.params, tok, state, plen + step)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            host_tok = tok.cpu().numpy()
+            self.stats["decode_tokens"] += bsz
+
+        dt = time.perf_counter() - t0
+        self.stats["decode_s"] += time.perf_counter() - t1
+        return [Completion(uid=r.uid, tokens=np.asarray(out[i], np.int32),
+                           prompt_len=len(r.prompt), latency_s=dt)
+                for i, r in enumerate(reqs)]

@@ -1,0 +1,149 @@
+"""The port's flash attention against the JAX reference, on the CPU.
+
+On CPU tensors the port's wrapper computes its plain version
+(repro_torch.kernels.ref.mha_reference); it is held here against the Pallas
+kernel in interpret mode and the reference's mha_reference over the sweeps of
+tests/test_kernels.py, and against mha_reference alone for ragged lengths,
+which the Pallas kernel refuses.  The CUDA kernel itself is held against the
+same plain version on the card by chip_smoke.py.
+"""
+import ctypes
+import os
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.ref import mha_reference as jax_mha
+from repro_torch.kernels import FLASH_KERNEL, build, flash_attention
+from repro_torch.kernels.flash_attention import ARGTYPES
+from repro_torch.kernels.ops import flash_attention_bshd
+from repro_torch.models.attention import MaskSpec
+
+torch.set_num_threads(1)
+
+# f32: a different summation order; bf16: the output's rounding
+ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def qkv(b, h, hkv, sq, skv, d, dtype, seed=7):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for shape in
+            ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+    jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, tx
+
+
+def as_np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      x.astype(jnp.float32), np.float32)
+
+
+def check(got, *refs, dtype):
+    for ref in refs:
+        np.testing.assert_allclose(as_np(got), as_np(ref), atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 2, 2, 128, 16),    # MHA
+    (2, 4, 2, 256, 32),    # GQA
+    (1, 4, 1, 128, 64),    # MQA
+    (2, 2, 2, 512, 16),    # longer seq
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_jax_shapes_dtypes(shape, dtype):
+    b, h, hkv, s, d = shape
+    (jq, jk, jv), (tq, tk, tv) = qkv(b, h, hkv, s, s, d, dtype)
+    got = flash_attention(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    check(got, jax_flash(jq, jk, jv, block_q=64, block_kv=64, interpret=True),
+          jax_mha(jq, jk, jv), dtype=dtype)
+
+
+MASKS = [
+    dict(causal=False),
+    dict(causal=True, window=64),
+    dict(causal=True, prefix_len=32),
+    dict(causal=True, logit_cap=50.0),
+    dict(causal=True, window=96, logit_cap=30.0),
+]
+
+
+@pytest.mark.parametrize("kwargs", MASKS)
+def test_flash_plain_matches_jax_mask_variants(kwargs):
+    (jq, jk, jv), (tq, tk, tv) = qkv(2, 4, 2, 256, 256, 32, "float32")
+    got = flash_attention(tq, tk, tv, **kwargs)
+    check(got, jax_flash(jq, jk, jv, block_q=64, block_kv=64, interpret=True,
+                         **kwargs),
+          jax_mha(jq, jk, jv, **kwargs), dtype="float32")
+
+
+@pytest.mark.parametrize("sq,skv", [(77, 77), (1000, 1000), (200, 77),
+                                    (77, 200)])
+@pytest.mark.parametrize("kwargs", [dict(causal=True)] + MASKS)
+def test_flash_plain_ragged_lengths(sq, skv, kwargs):
+    """Lengths no block size divides; (200, 77) with a window leaves rows
+    with no allowed column, which average v over all columns."""
+    (jq, jk, jv), (tq, tk, tv) = qkv(1, 4, 2, sq, skv, 16, "float32")
+    check(flash_attention(tq, tk, tv, **kwargs), jax_mha(jq, jk, jv, **kwargs),
+          dtype="float32")
+
+
+def test_wrapper_on_cpu_takes_plain_path_without_launch():
+    _, (tq, tk, tv) = qkv(1, 4, 2, 64, 64, 32, "float32")
+    before = FLASH_KERNEL.launches
+    flash_attention(tq, tk, tv)
+    assert FLASH_KERNEL.launches == before
+    assert FLASH_KERNEL._lib is None          # nothing was built or loaded
+
+
+def test_wrapper_refuses_other_devices_and_bad_arguments():
+    _, (tq, tk, tv) = qkv(1, 4, 2, 64, 64, 32, "float32")
+    meta = [t.to("meta") for t in (tq, tk, tv)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(*meta)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(tq, tk, tv, window=0)
+    three = [torch.cat([t, t[:, :1]], dim=1) for t in (tk, tv)]
+    with pytest.raises(ValueError, match="group"):
+        flash_attention(tq, *three)             # 4 query heads, 3 kv heads
+    with pytest.raises(ValueError, match="share"):
+        flash_attention(tq, tk.double(), tv)
+
+
+def test_bshd_adapter_matches_bhsd():
+    (jq, jk, jv), (tq, tk, tv) = qkv(2, 4, 2, 96, 96, 16, "float32")
+    spec = MaskSpec(causal=True, window=40)
+    got = flash_attention_bshd(tq.transpose(1, 2), tk.transpose(1, 2),
+                               tv.transpose(1, 2), spec, 30.0)
+    ref = jax_mha(jq, jk, jv, causal=True, window=40, logit_cap=30.0)
+    check(got.transpose(1, 2), ref, dtype="float32")
+
+
+def test_ctypes_signature_matches_the_c_entry_point():
+    """The kernel builds only on the card, so the binding's argument list is
+    held here against the C prototype in the source."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    params = re.search(r"int repro_flash_attention_fwd\((.*?)\)", src,
+                       re.S).group(1)
+    c_types = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+               "int64_t": ctypes.c_int64, "float": ctypes.c_float}
+    declared = [c_types[re.sub(r"^const ", "", p.strip()).rsplit(" ", 1)[0]
+                        .replace(" *", "*")]
+                for p in params.split(",")]
+    assert declared == ARGTYPES
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    root = os.path.join(os.path.dirname(__file__), "..")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert out.stdout == ""

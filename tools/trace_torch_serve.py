@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Trace one batch of the PyTorch port's serving path on the card.
+
+    python3 tools/trace_torch_serve.py
+
+qwen3-8b at full width (bf16, random weights from seed 0), one batch of 2
+prompts of 1000 tokens and 16 new tokens: the first batch of the serve
+phase of chip_smoke.py.  Runs the calls ServingEngine makes for it
+(prefill, then greedy decode steps) once to warm up, then again under
+torch.profiler.  Prints one JSON line per phase: host seconds (inflated by
+the profiler's own cost), device busy seconds (the sum of kernel and copy
+times, which do not overlap on one stream), the idle share, kernel launches,
+host-to-device copies and syncs per step, and the kernels that take the
+most device time.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "..", "src"))
+
+SEED, BATCH, PLEN, NEW_TOKENS = 0, 2, 1000, 16
+
+
+def _summary(prof, wall_s: float, steps: int) -> dict:
+    events = prof.key_averages()
+    on_device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                       key=lambda e: e.self_device_time_total, reverse=True)
+    busy_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    host = {e.key: e.count for e in events}
+    return dict(
+        steps=steps, wall_s=wall_s, device_busy_s=busy_s,
+        idle_share=1 - busy_s / wall_s,
+        kernel_launches_per_step=host.get("cudaLaunchKernel", 0) / steps,
+        memcpy_per_step=host.get("cudaMemcpyAsync", 0) / steps,
+        syncs_per_step=host.get("cudaStreamSynchronize", 0) / steps,
+        top_kernels=[[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                     for e in on_device[:8]])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("trace_torch_serve: needs a CUDA card", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-8b")
+    params = build_model(cfg).init(SEED, torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (BATCH, PLEN))).cuda()
+    steps = NEW_TOKENS - 1
+    clen = PLEN + NEW_TOKENS + 1
+
+    def prefill():
+        caches = tf.init_kv_caches(cfg, BATCH, clen, device="cuda")
+        caches, logits = tf.lm_prefill(params, cfg, tokens, caches)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        tok.cpu()
+        return caches, tok
+
+    def decode(caches, tok):
+        for i in range(steps):
+            logits, caches = tf.lm_decode_step(params, cfg, tok, caches,
+                                               PLEN + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            tok.cpu()
+
+    print(json.dumps({"phase": "device",
+                      "name": torch.cuda.get_device_name(0),
+                      "arch": cfg.name, "batch": BATCH,
+                      "plen": PLEN, "new_tokens": NEW_TOKENS}))
+    with torch.inference_mode():
+        decode(*prefill())                         # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            caches, tok = prefill()
+            wall = time.perf_counter() - t0
+        print(json.dumps({"phase": "prefill", **_summary(prof, wall, 1)}))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(caches, tok)
+            wall = time.perf_counter() - t0
+        print(json.dumps({"phase": "decode", **_summary(prof, wall, steps)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
