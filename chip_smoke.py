@@ -6,20 +6,54 @@
 Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. device           CUDA required; TF32 off; the card's name and power limit.
-2. build            nvcc builds every kernel from src/repro_torch/kernels/csrc.
-3. kernel_vs_plain  each kernel against its plain PyTorch version on the card
-                    over dtypes, head dims, head groupings, masks and ragged
-                    lengths; times at the serving shape beside the bound, the
-                    plain version and one PyTorch library call.
-4. model_vs_cpu     reduced qwen3-8b and gemma2-2b, the same weights on the
+2. build            nvcc builds every kernel from src/repro_torch/kernels/csrc,
+                    one nvcc per source, all started together.
+3. kernel_vs_plain  the flash kernel against its plain PyTorch version on the
+                    card over dtypes, head dims, head groupings, masks and
+                    ragged lengths; times at the serving shape beside the
+                    bound, the plain version and one PyTorch library call.
+4. chunk_accum_vs_plain
+                    the chunk_accum kernel, dense and indexed, f32/bf16/f16
+                    updates, ragged widths, widths 1-8 with repeated trash
+                    rows: torch.equal to its plain version; times at the
+                    widest reduce-scatter call of a 64 MiB gradient bucket,
+                    rotating over rows well beyond L2 (device time per call
+                    from a CUDA graph's replay, and the eager time per call
+                    with the host's cost).
+5. model_vs_cpu     reduced qwen3-8b and gemma2-2b, the same weights on the
                     card (kernel path) and on the CPU (plain path): prefill and
                     decode logits agree.
-5. serve            the main path: qwen3-8b at full width (36 layers,
+6. serve            serving path: qwen3-8b at full width (36 layers,
                     d_model 4096, bf16, random weights from --seed) serves 4
                     long, ragged prompts through ServingEngine; the flash
                     kernel is launched once per layer per batch.
-6. entry_point      `python -m repro_torch.launch.serve --arch qwen3-8b
+7. entry_point      `python -m repro_torch.launch.serve --arch qwen3-8b
                     --reduced` with no --device flag exits 0.
+8. collectives_stacked
+                    training's gradient path: 8 data-parallel ranks stacked
+                    on the card run BucketedAllReduce over gemma2-2b's full
+                    gradient (2.61 B f32 per rank, 64 MiB buckets, one
+                    bucket alive at a time) on the default data-axis model
+                    (a bidirectional ring) and on dgx:8; every rank ends
+                    equal, the reduce-scatter is bit-equal to the same
+                    program with the plain accumulate, and the sum is within
+                    STACK_ATOL of stack.sum(0).  chunk_accum is launched in
+                    every reduce-scatter call.
+9. train            `repro_torch.launch.train` trains gemma2-2b at full width
+                    (bf16 compute, fp32 masters and AdamW) for 3 steps of
+                    4 x 512 tokens on the card: finite losses, step time,
+                    tokens/s, peak memory; attention under autograd takes
+                    the plain path, so the flash kernel is not launched.
+10. train_vs_cpu    reduced qwen3-8b and gemma2-2b, 2 train steps from the same
+                    weights on the card and on the CPU: losses and params
+                    agree.
+11. train_entry_point
+                    `python -m repro_torch.launch.train --arch qwen3-8b
+                    --reduced --steps 2 --collectives pipeline` with no
+                    --device flag exits 0.
+12. nccl_p2p        with two or more cards: the P2P form under NCCL at world =
+                    the card count, bit-equal to the stacked form; with one
+                    card it prints that it did not run.
 
 Then the card's line from nvidia-smi, a `kernels` JSON line, and as the last
 line {"ok": true, "device": {...}}.
@@ -28,10 +62,14 @@ from __future__ import annotations
 
 import argparse
 import copy
+import datetime
 import json
+import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,6 +85,18 @@ TOL = {torch.float32: 1e-4,   # accumulation order
        torch.bfloat16: 2e-2}  # the output's rounding
 MODEL_ATOL = 1e-4             # fp32 logits, kernel vs plain attention
 MAIN = dict(b=2, h=32, hkv=8, s=1024, d=128)   # qwen3-8b prefill attention
+DEV = "cuda"
+RANKS = 8                     # data-parallel ranks stacked on the card
+TRAIN_ARGV = ["--arch", "gemma2-2b", "--steps", "3", "--global-batch", "4",
+              "--seq", "512"]
+# |allreduce - stack.sum(0)| for N(0,1) data over 8 ranks: two f32 sums of
+# 8 terms in different orders differ by at most 14 roundings of 2**-24 times
+# the largest partial sum, which stays below ~50 for 2e10 draws
+STACK_ATOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-5        # fp32 losses, card vs CPU (summation order)
+# fp32 params after 2 AdamW steps, card vs CPU: where a gradient is ~eps an
+# update can flip sign, so the bound is two steps of lr (<= 2e-4) each way
+TRAIN_PARAM_ATOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -67,6 +117,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int, iters: int = 10) -> float:
+    """Device time of one of the `calls` calls that fn makes: fn captured in
+    a CUDA graph and replayed, so the host's per-call cost drops out."""
+    fn()                                    # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters=iters) / calls
+
+
 def phase_device() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -81,15 +142,23 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
+    names = ("flash_attention", "chunk_accum")
     t0 = time.perf_counter()
-    path, log = build.build("flash_attention", force=True)
-    spills = [l.strip() for l in log.splitlines() if "spill" in l
-              and not l.strip().startswith("0 bytes stack frame, 0 bytes")]
-    emit("build", kernel="flash_attention",
-         source="src/repro_torch/kernels/csrc/flash_attention.cu",
-         library=os.path.relpath(path, ROOT),
-         seconds=time.perf_counter() - t0, nonzero_spill_lines=spills)
+    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
+        built = list(pool.map(lambda n: build.build(n, force=True), names))
+    seconds = time.perf_counter() - t0
+    for name, (path, log) in zip(names, built):
+        spills = [l.strip() for l in log.splitlines() if "spill" in l
+                  and not l.strip().startswith("0 bytes stack frame, 0 bytes")]
+        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
+                                                  log)})
+        emit("build", kernel=name,
+             source=f"src/repro_torch/kernels/csrc/{name}.cu",
+             library=os.path.relpath(path, ROOT), seconds_all=seconds,
+             registers=regs, nonzero_spill_lines=spills)
 
 
 def _qkv(gen, b, h, hkv, sq, skv, d, dtype):
@@ -166,6 +235,118 @@ def phase_kernel_vs_plain(seed: int) -> dict:
     return res
 
 
+def _bucket_call(prog, bucket_bytes: int):
+    """(rows, chunk) of a stacked reduce-scatter buffer for one bucket, and
+    the (read, write) rows of the program's widest call."""
+    elems = bucket_bytes // 4                       # f32 gradients
+    a, s = prog.axis_size, prog.slots_per_shard
+    shard = -(-elems // a)                          # ceil
+    ce = -(-shard // s)
+    call = max((c for rnd in prog.rounds for c in rnd),
+               key=lambda c: len(c.perm) * c.width)
+    src = np.array([p[0] for p in call.perm])
+    dst = np.array([p[1] for p in call.perm])
+    rows = a * s + 1
+    read = (src[:, None] * rows + call.send_slots[src]).ravel()
+    write = (dst[:, None] * rows + call.recv_slots[dst]).ravel()
+    return a * rows, ce, read, write
+
+
+def phase_chunk_accum_vs_plain(seed: int) -> dict:
+    from repro_torch.api import Collectives
+    from repro_torch.kernels import (chunk_accum, chunk_accum_indexed,
+                                     chunk_accum_indexed_reference,
+                                     chunk_accum_reference)
+    from repro_torch.topo import axis_topology_for_mesh
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    cases, failures = 0, []
+    for dtype in dtypes:
+        for n, c in ((1, 1), (3, 5), (8, 512), (7, 1003), (16, 131072),
+                     (5, 3085), (64, 2048)):
+            acc, upd = rnd(n, c), rnd(n, c, dtype=dtype)
+            got = chunk_accum(acc.clone(), upd)
+            torch.cuda.synchronize()
+            cases += 1
+            if not torch.equal(got, chunk_accum_reference(acc.clone(), upd)):
+                failures.append(("dense", str(dtype), n, c))
+        for width in range(1, 9):
+            for c in (1, 7, 1003, 3084, 131072):
+                rows = 8 * width + 1
+                trash = rows - 1
+                acc = rnd(rows, c)
+                idx = torch.randperm(trash, generator=gen,
+                                     device=DEV)[:width]
+                # a non-receiver's slots are all the trash row
+                idx = torch.cat([idx, torch.full((width,), trash,
+                                                 device=DEV)])
+                upd = rnd(2 * width, c, dtype=dtype)
+                got = chunk_accum_indexed(acc.clone(), idx, upd, trash)
+                torch.cuda.synchronize()
+                cases += 1
+                ref = chunk_accum_indexed_reference(acc.clone(), idx, upd,
+                                                    trash)
+                if not torch.equal(got, ref):
+                    failures.append(("indexed", str(dtype), width, c))
+    assert not failures, f"chunk_accum disagrees with its plain version: " \
+        f"{failures}"
+
+    # times at the widest reduce-scatter call of one 64 MiB bucket of the
+    # stacked data-axis allreduce (the collectives phase's shapes)
+    rs, _ = Collectives().program(axis_topology_for_mesh("data", RANKS),
+                                  kind="allreduce")
+    nrows, ce, _, write = _bucket_call(rs, 64 << 20)
+    skip = rs.num_slots
+    buf = rnd(nrows, ce)
+    # SETS calls of the call's shape, each on rows of its own (~320 MB in
+    # all, well above the 50 MB L2): the main path finds its rows cold
+    sets = 40
+    rows = torch.tensor([r for r in range(nrows) if r != skip])
+    rows = rows[torch.randperm(len(rows))[:sets * len(write)]]
+    idxs = rows.view(sets, len(write)).to(DEV)
+    gots = rnd(sets, len(write), ce)
+
+    def kernel():
+        for idx, got in zip(idxs, gots):
+            chunk_accum_indexed(buf, idx, got, skip)
+
+    def plain():
+        for idx, got in zip(idxs, gots):
+            chunk_accum_indexed_reference(buf, idx, got, skip)
+
+    def library():
+        for idx, got in zip(idxs, gots):
+            buf.index_add_(0, idx, got)
+
+    # device time per call (graph replay) for the kernel and the library
+    # call; the plain version syncs (boolean mask), so it runs eagerly; the
+    # eager times include the host's cost per call, as the main path pays it
+    plain_ms = cuda_ms(plain, iters=3) / sets
+    kernel_ms = graph_ms(kernel, sets)
+    library_ms = graph_ms(library, sets)
+    eager_ms = cuda_ms(kernel, iters=3) / sets
+    library_eager_ms = cuda_ms(library, iters=3) / sets
+    kernel_ms = (kernel_ms + graph_ms(kernel, sets)) / 2
+    plain_ms = (plain_ms + cuda_ms(plain, iters=3) / sets) / 2
+    # one call: each landed element's acc read + acc written (4 + 4), the
+    # update (4), and the call's row indices (8 each)
+    nbytes = gots[0].numel() * 12 + idxs[0].numel() * 8
+    res = dict(cases=cases, max_abs_err=0.0, equal=True,
+               call_rows=len(write), call_cols=ce, buffer_rows=nrows,
+               update_dtype="float32", kernel_ms=kernel_ms,
+               kernel_eager_ms=eager_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_eager_ms=library_eager_ms,
+               library="Tensor.index_add_", bytes=nbytes,
+               bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               flops=gots[0].numel(), timed_sets=sets)
+    emit("chunk_accum_vs_plain", **res)
+    return res
+
+
 def phase_model_vs_cpu(seed: int) -> None:
     from repro_torch.configs import reduced_config
     from repro_torch.kernels import FLASH_KERNEL
@@ -184,7 +365,8 @@ def phase_model_vs_cpu(seed: int) -> None:
         worst = 0.0
         with torch.inference_mode():
             cc, lc = tf.lm_prefill(cpu, cfg, tokens,
-                                   tf.init_kv_caches(cfg, b, max_len))
+                                   tf.init_kv_caches(cfg, b, max_len,
+                                                     device="cpu"))
             cg, lg = tf.lm_prefill(gpu, cfg, tokens.cuda(),
                                    tf.init_kv_caches(cfg, b, max_len,
                                                      device="cuda"))
@@ -273,6 +455,223 @@ def phase_entry_point() -> None:
          seconds=time.perf_counter() - t0)
 
 
+def _grad_shapes(name: str) -> dict:
+    """name -> shape of every parameter (so every gradient) of the model at
+    full width, from a module built on the meta device."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderLM
+    with torch.device("meta"):
+        lm = DecoderLM(get_config(name))
+    return {n: tuple(p.shape) for n, p in lm.named_parameters()}
+
+
+def phase_collectives_stacked(seed: int) -> dict:
+    from repro_torch.comms import (CollectiveContext, Stacked,
+                                   partition_buckets, tree_reduce_scatter)
+    from repro_torch.kernels import CHUNK_ACCUM_KERNEL
+    from repro_torch.kernels import chunk_accum_indexed_reference
+    shapes = _grad_shapes(TRAIN_ARGV[1])
+    meta = {n: torch.empty(sh, device="meta") for n, sh in shapes.items()}
+    elems_per_rank = sum(math.prod(sh) for sh in shapes.values())
+    plain = Stacked(RANKS, accumulate=chunk_accum_indexed_reference)
+    results = {}
+    CHUNK_ACCUM_KERNEL.launches = 0
+    for label, topo in (("data-ring8", None), ("dgx:8", "dgx:8")):
+        ctx = CollectiveContext({"data": RANKS},
+                                topologies={"data": topo} if topo else None)
+        red = ctx.bucketed_allreduce("data", Stacked(RANKS),
+                                     wire_dtype=None)
+        buckets = partition_buckets(meta, red.bucket_bytes)
+        gens = [torch.Generator(device=DEV).manual_seed(
+            seed * 1000 + r) for r in range(RANKS)]
+        before = CHUNK_ACCUM_KERNEL.launches
+        reduce_s, worst, largest = [], 0.0, 0
+        t_all = time.perf_counter()
+        for bucket in buckets:
+            n = sum(math.prod(shapes[k]) for k in bucket)
+            largest = max(largest, n)
+            stack = torch.empty((RANKS, n), device=DEV)
+            for r in range(RANKS):
+                stack[r].normal_(generator=gens[r])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = red.reduce_bucket(stack)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+            for r in range(1, RANKS):
+                assert torch.equal(out[r], out[0]), (label, bucket, r)
+            # the reduce-scatter of the same layout (pad, then [A, n / A])
+            # with the plain accumulate: rank i's shard is the i-th piece
+            pad = (-n) % RANKS
+            split = torch.nn.functional.pad(stack, (0, pad)) if pad \
+                else stack
+            shards = tree_reduce_scatter(split.view(RANKS, RANKS, -1),
+                                         red.rs_prog, plain,
+                                         accum_dtype=torch.float32)
+            del split
+            assert torch.equal(out[0], shards.reshape(-1)[:n]), \
+                (label, bucket)
+            del shards
+            worst = max(worst, (out[0] - stack.sum(0)).abs().max().item())
+            del stack, out
+        launches = CHUNK_ACCUM_KERNEL.launches - before
+        assert launches > 0, label
+        assert worst <= STACK_ATOL, (label, worst)
+        rs = red.rs_prog
+        res = dict(topology=label, graph=ctx.topology("data").name,
+                   ranks=RANKS, elems_per_rank=elems_per_rank,
+                   gb_per_rank=elems_per_rank * 4 / 1e9,
+                   buckets=len(buckets), largest_bucket_elems=largest,
+                   rs_calls=rs.num_calls, slots_per_shard=rs.slots_per_shard,
+                   chunk_accum_launches=launches,
+                   reduce_s_total=sum(reduce_s),
+                   reduce_s_per_bucket=sum(reduce_s) / len(reduce_s),
+                   reduce_s_largest_bucket=max(reduce_s),
+                   phase_s=time.perf_counter() - t_all,
+                   max_abs_err_vs_sum=worst, atol=STACK_ATOL,
+                   bit_equal_plain_accumulate=True, ranks_equal=True)
+        emit("collectives_stacked", **res)
+        results[label] = res
+        torch.cuda.empty_cache()
+    results["launches"] = CHUNK_ACCUM_KERNEL.launches
+    return results
+
+
+def phase_train(seed: int) -> dict:
+    from repro_torch.kernels import CHUNK_ACCUM_KERNEL, FLASH_KERNEL
+    from repro_torch.launch import train as launch_train
+    argv = TRAIN_ARGV + ["--device", DEV, "--seed", str(seed)]
+    flash, accum = FLASH_KERNEL.launches, CHUNK_ACCUM_KERNEL.launches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = launch_train.run(launch_train.build_parser().parse_args(argv))
+    wall = time.perf_counter() - t0
+    losses = [r["loss"] for r in records]
+    assert all(math.isfinite(l) for l in losses), losses
+    # under autograd attention takes the plain path; one rank, no collective
+    assert FLASH_KERNEL.launches == flash
+    assert CHUNK_ACCUM_KERNEL.launches == accum
+    steady = records[1:]
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARGV[1])
+    res = dict(command="repro_torch.launch.train " + " ".join(argv),
+               layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, reduced="--reduced" in argv,
+               compute_dtype="float32" if "--reduced" in argv
+               else "bfloat16", params_dtype="float32",
+               losses=losses, step_s=[r["seconds"] for r in records],
+               tokens_per_step=records[0]["tokens"],
+               steady_tok_per_s=sum(r["tokens"] for r in steady)
+               / sum(r["seconds"] for r in steady),
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, wall_s=wall)
+    emit("train", **res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_vs_cpu(seed: int) -> None:
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   host_batch_slice, init_adamw,
+                                   make_train_step)
+    for name in ("qwen3-8b", "gemma2-2b"):
+        cfg = reduced_config(name)
+        model = build_model(cfg, remat=True)
+        cpu = model.init(seed, torch.float32, "cpu")
+        gpu = copy.deepcopy(cpu).to(DEV)
+        tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                               total_steps=2))
+        step = make_train_step(model, tc)
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                        global_batch=4, seed=seed)
+        opt_c, opt_g = init_adamw(cpu), init_adamw(gpu)
+        loss_err = 0.0
+        for i in range(2):
+            batch = host_batch_slice(dc, i, 0, 4)
+            cpu, opt_c, mc = step(cpu, opt_c, batch)
+            gpu, opt_g, mg = step(gpu, opt_g,
+                                  {k: v.to(DEV) for k, v in batch.items()})
+            lc, lg = float(mc["loss"]), float(mg["loss"])
+            assert math.isfinite(lg)
+            loss_err = max(loss_err, abs(lg - lc) / abs(lc))
+        param_err = max((pg.cpu() - pc).abs().max().item() for pc, pg in
+                        zip(cpu.parameters(), gpu.parameters()))
+        assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
+        assert param_err <= TRAIN_PARAM_ATOL, (name, param_err)
+        emit("train_vs_cpu", arch=name, reduced=True, steps=2,
+             max_rel_loss_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+             max_abs_param_err=param_err, param_atol=TRAIN_PARAM_ATOL)
+
+
+def phase_train_entry_point() -> None:
+    t0 = time.perf_counter()
+    cmd = ["-m", "repro_torch.launch.train", "--arch", "qwen3-8b",
+           "--reduced", "--steps", "2", "--collectives", "pipeline"]
+    proc = subprocess.run(
+        [sys.executable, *cmd], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.splitlines()
+    assert "done at step 2" in lines, proc.stdout
+    assert "data-parallel 1: no collective runs" in lines, proc.stdout
+    emit("train_entry_point", command="python " + " ".join(cmd),
+         rc=proc.returncode, seconds=time.perf_counter() - t0)
+
+
+def _p2p_rank(rank: int, world: int, port: int, seed: int, out: str) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.api import Collectives
+    from repro_torch.comms import P2P, tree_all_reduce
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        rs, ag = Collectives().program(f"bring:{world}", kind="allreduce")
+        gen = torch.Generator(device="cuda").manual_seed(seed * 1000 + rank)
+        x = torch.randn(1 << 22, generator=gen, device="cuda")
+        y = tree_all_reduce(x, rs, ag, P2P())
+        torch.save(y.cpu(), os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_nccl_p2p(seed: int) -> None:
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("nccl_p2p", run=False, cards=cards)
+        return
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.api import Collectives
+    from repro_torch.comms import Stacked, tree_all_reduce
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        mp.spawn(_p2p_rank, args=(cards, port, seed, out), nprocs=cards,
+                 join=True)
+        got = [torch.load(os.path.join(out, f"rank{r}.pt"))
+               for r in range(cards)]
+    rs, ag = Collectives().program(f"bring:{cards}", kind="allreduce")
+    stack = torch.stack([
+        torch.randn(1 << 22, generator=torch.Generator(device="cuda")
+                    .manual_seed(seed * 1000 + r), device="cuda")
+        for r in range(cards)])
+    ref = tree_all_reduce(stack, rs, ag, Stacked(cards)).cpu()
+    for r in range(cards):
+        assert torch.equal(got[r], ref[r]), r
+    emit("nccl_p2p", run=True, cards=cards, elems=1 << 22,
+         bit_equal_stacked=True, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -286,9 +685,19 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kern = phase_kernel_vs_plain(args.seed)
+    accum = phase_chunk_accum_vs_plain(args.seed)
     phase_model_vs_cpu(args.seed)
+    from repro_torch.kernels import CHUNK_ACCUM_KERNEL
+    CHUNK_ACCUM_KERNEL.launches = 0   # phase_serve zeroes the flash count
     serve = phase_serve(args.seed)
+    assert CHUNK_ACCUM_KERNEL.launches == 0     # serving runs no collective
     phase_entry_point()
+    torch.cuda.empty_cache()          # the serve model is gone
+    coll = phase_collectives_stacked(args.seed)
+    phase_train(args.seed)
+    phase_train_vs_cpu(args.seed)
+    phase_train_entry_point()
+    phase_nccl_p2p(args.seed)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -300,7 +709,16 @@ def main() -> int:
         "held_against_plain": True,
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"]}]}))
+        "library_ms": kern["library_ms"]}, {
+        "name": "chunk_accum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/chunk_accum.cu",
+        "replaces": "src/repro/kernels/chunk_accum.py:23",
+        "launches": coll["launches"],
+        "max_abs_err": accum["max_abs_err"],
+        "held_against_plain": True,
+        "ms": accum["kernel_ms"], "plain_ms": accum["plain_ms"],
+        "bound_ms": accum["bound_ms"], "bound_by": accum["bound_by"],
+        "library_ms": accum["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

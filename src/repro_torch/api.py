@@ -1,0 +1,199 @@
+"""The port's front door to the schedule compiler: `Collectives`.
+
+The schedule level of src/repro/api.py, over the port's copy of the compiler
+(`repro_torch.core`, `repro_torch.topo`)::
+
+    from repro_torch.api import Collectives
+
+    coll = Collectives()
+    sched = coll.schedule("torus2d:8x8", kind="allgather", num_chunks=16)
+    ag, rs = coll.pair("bring:8")
+    rs_prog, ag_prog = coll.program("dgx:8", kind="allreduce")
+    fn = coll.executable("bring:8", kind="allreduce", comm=Stacked(8))
+
+Topology arguments accept a `DiGraph`, a `repro_torch.topo.TopologySpec`, a
+zoo row name or a raw spec string, as in the reference.  The on-disk schedule
+cache and online repair are not ported yet (ROADMAP.md, queue A items A1 and
+A6): every call compiles.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+
+from repro_torch.core import plan as plan_mod
+from repro_torch.core import schedule as schedule_mod
+from repro_torch.core.graph import DiGraph
+from repro_torch.core.schedule import AllReduceSchedule, PipelineSchedule
+from repro_torch.topo.spec import SpecLike, resolve_topology
+
+Artifact = Union[PipelineSchedule, AllReduceSchedule]
+
+#: collective kinds the compiler understands
+KINDS = ("allgather", "reduce_scatter", "broadcast", "reduce", "allreduce",
+         "alltoall")
+ROOTED_KINDS = ("broadcast", "reduce")
+#: the default `family()` pair — what an allreduce consumer needs
+PAIR_KINDS = ("allgather", "reduce_scatter")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompileOptions:
+    """Declarative compile request: everything a schedule acquisition needs
+    besides the topology itself.
+
+    ``root=None`` on a rooted kind defaults to the smallest compute node at
+    resolve time, so ``broadcast`` works out of the box; ``verify`` replays
+    every chunk at compile time."""
+    kind: str = "allgather"
+    root: Optional[int] = None
+    num_chunks: int = 8
+    fixed_k: Optional[int] = None
+    verify: bool = False
+
+    def __post_init__(self) -> None:
+        if self.kind not in KINDS:
+            raise ValueError(f"unknown collective kind {self.kind!r} "
+                             f"(one of {KINDS})")
+        if self.kind in ROOTED_KINDS and self.fixed_k is not None:
+            raise ValueError(f"{self.kind} has no fixed-k variant "
+                             f"(k = λ(root))")
+
+    def replace(self, **overrides: Any) -> "CompileOptions":
+        return dataclasses.replace(self, **overrides)
+
+    def resolved_root(self, g: DiGraph) -> Optional[int]:
+        if self.kind not in ROOTED_KINDS:
+            return None
+        return self.root if self.root is not None else min(g.compute)
+
+
+class Collectives:
+    """Facade over the staged compiler pipeline.  Keywords set the default
+    `CompileOptions` that per-call keywords override.  ``cache`` must be
+    None: the schedule cache is the next slice of the port."""
+
+    def __init__(self, cache: Any = None, *,
+                 options: Optional[CompileOptions] = None,
+                 **defaults: Any):
+        if cache is not None and cache != "":
+            raise NotImplementedError(
+                "the on-disk schedule cache is not ported yet (ROADMAP.md "
+                "queue A, item A1: --schedule-cache); pass cache=None")
+        if options is not None and defaults:
+            raise TypeError("pass either options= or default keywords, "
+                            "not both")
+        self.options = options if options is not None \
+            else CompileOptions(**defaults)
+
+    # -------------------------------------------------------------- #
+    # request plumbing
+    # -------------------------------------------------------------- #
+
+    def topology(self, topo: SpecLike) -> DiGraph:
+        """Resolve any accepted topology form to a `DiGraph`."""
+        return resolve_topology(topo)
+
+    def opts(self, opts: Optional[CompileOptions] = None,
+             **overrides: Any) -> CompileOptions:
+        """Merge per-call overrides onto the facade defaults."""
+        base = opts if opts is not None else self.options
+        return base.replace(**overrides) if overrides else base
+
+    # -------------------------------------------------------------- #
+    # schedules
+    # -------------------------------------------------------------- #
+
+    def schedule(self, topo: SpecLike,
+                 opts: Optional[CompileOptions] = None,
+                 **overrides: Any) -> Artifact:
+        """One compiled artifact (`PipelineSchedule`, or
+        `AllReduceSchedule` for ``kind="allreduce"``)."""
+        g = self.topology(topo)
+        o = self.opts(opts, **overrides)
+        if o.kind in ROOTED_KINDS:
+            return getattr(schedule_mod, f"compile_{o.kind}")(
+                g, root=o.resolved_root(g), num_chunks=o.num_chunks,
+                verify=o.verify)
+        return getattr(schedule_mod, f"compile_{o.kind}")(
+            g, num_chunks=o.num_chunks, fixed_k=o.fixed_k, verify=o.verify)
+
+    def family(self, topo: SpecLike,
+               kinds: Sequence[str] = PAIR_KINDS,
+               opts: Optional[CompileOptions] = None,
+               **overrides: Any) -> Dict[str, Artifact]:
+        """One topology's collective family compiled together — the §2.1
+        solve and the split/pack products shared across kinds, byte-identical
+        to per-kind compiles."""
+        g = self.topology(topo)
+        o = self.opts(opts, **overrides)
+        root = (o.replace(kind="broadcast").resolved_root(g)
+                if any(k in ROOTED_KINDS for k in kinds) else None)
+        return plan_mod.compile_family(
+            g, kinds=kinds, num_chunks=o.num_chunks, root=root,
+            fixed_k=o.fixed_k, verify=o.verify)
+
+    def pair(self, topo: SpecLike,
+             opts: Optional[CompileOptions] = None,
+             **overrides: Any) -> Tuple[PipelineSchedule, PipelineSchedule]:
+        """(allgather, reduce_scatter) compiled as one family."""
+        fam = self.family(topo, PAIR_KINDS, opts, **overrides)
+        return fam["allgather"], fam["reduce_scatter"]
+
+    # -------------------------------------------------------------- #
+    # lowered programs / executables
+    # -------------------------------------------------------------- #
+
+    def lower(self, artifact: Artifact):
+        """Stage-5 lowering of a compiled artifact to static permute
+        program(s); an `AllReduceSchedule` lowers to ``(rs_prog, ag_prog)``
+        — the argument order `tree_all_reduce` expects."""
+        from repro_torch.comms.executor import compile_program
+        if isinstance(artifact, AllReduceSchedule):
+            return compile_program(artifact.rs), compile_program(artifact.ag)
+        return compile_program(artifact)
+
+    def program(self, topo: SpecLike,
+                opts: Optional[CompileOptions] = None, **overrides: Any):
+        """Schedule + lower in one step.  ``kind="allreduce"`` returns
+        ``(rs_prog, ag_prog)``; every other kind one `PermuteProgram`."""
+        return self.lower(self.schedule(topo, opts, **overrides))
+
+    def executable(self, topo: SpecLike, *, comm,
+                   opts: Optional[CompileOptions] = None,
+                   **overrides: Any) -> Callable:
+        """A ready-to-call collective over ``comm`` (a
+        `repro_torch.comms.P2P` process group or a `Stacked` axis): the
+        schedule is compiled, lowered, and bound to the matching
+        `repro_torch.comms.collectives.tree_*` executor.  Extra keyword
+        arguments of the ``tree_*`` function (e.g. ``accum_dtype``) pass
+        through the returned callable.  Broadcast, reduce and alltoall have
+        no executor in the port yet (ROADMAP.md queue A, items A2, A4)."""
+        o = self.opts(opts, **overrides)
+        from repro_torch.comms import collectives as tree_mod
+        if o.kind == "allreduce":
+            rs_prog, ag_prog = self.program(topo, o)
+
+            def run_allreduce(x, **kw):
+                return tree_mod.tree_all_reduce(x, rs_prog, ag_prog, comm,
+                                                **kw)
+            return run_allreduce
+        fns = {"allgather": tree_mod.tree_all_gather,
+               "reduce_scatter": tree_mod.tree_reduce_scatter}
+        if o.kind not in fns:
+            raise NotImplementedError(
+                f"no {o.kind} executor in the port yet (ROADMAP.md queue A: "
+                f"broadcast and reduce are A2, alltoall is A4)")
+        fn = fns[o.kind]
+        prog = self.program(topo, o)
+
+        def run(x, **kw):
+            return fn(x, prog, comm, **kw)
+        return run
+
+    # -------------------------------------------------------------- #
+    # introspection
+    # -------------------------------------------------------------- #
+
+    def describe(self) -> str:
+        return f"Collectives[{self.options}] cache=none"

@@ -4,7 +4,8 @@
 nested dicts of numpy arrays, layers stacked [L, ...], and returns the port's
 `DecoderLM` with the same weights: the layers are split, and every 2-D weight
 inside a layer, and the untied lm_head, is transposed into `nn.Linear`'s
-[out, in] layout.  The embedding keeps its [V, d] layout.
+[out, in] layout.  The embedding keeps its [V, d] layout.  The result lies
+on the card unless the caller passes device="cpu".
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from .models.common import ModelConfig
+from .models.common import ModelConfig, resolve_device
 from .models.transformer import DecoderLM
 
 
@@ -41,7 +42,10 @@ def _layer_entries(prefix: str, tree: Mapping, i: int,
 
 
 def from_jax_params(cfg: ModelConfig, tree: Mapping,
-                    device="cpu") -> DecoderLM:
+                    device="cuda") -> DecoderLM:
+    """The port's DecoderLM with the weights of `tree`, on `device`: the
+    card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     sd: Dict[str, torch.Tensor] = {
         "embed": _tensor(tree["embed"]),
         "final_norm": _tensor(tree["final_norm"]),

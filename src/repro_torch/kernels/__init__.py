@@ -2,10 +2,15 @@
 
     flash_attention  csrc/flash_attention.cu  (replaces the Pallas
                      src/repro/kernels/flash_attention.py)
+    chunk_accum      csrc/chunk_accum.cu      (replaces the Pallas
+                     src/repro/kernels/chunk_accum.py)
 
 Kernels build with nvcc at first launch (`build.py`), never at import.
 """
+from .chunk_accum import KERNEL as CHUNK_ACCUM_KERNEL  # noqa: F401
+from .chunk_accum import chunk_accum, chunk_accum_indexed  # noqa: F401
 from .flash_attention import KERNEL as FLASH_KERNEL  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
 from .ops import flash_attention_bshd  # noqa: F401
-from .ref import mha_reference  # noqa: F401
+from .ref import (chunk_accum_indexed_reference,  # noqa: F401
+                  chunk_accum_reference, mha_reference)

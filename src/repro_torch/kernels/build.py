@@ -5,6 +5,10 @@ Hopper (`sm_90a`) into `build/<name>-<hash>.so` beside this file, where the
 hash covers the source and the flags, and `ctypes` loads it.  Nothing
 includes PyTorch's headers, so a build takes seconds.  A build runs at a
 kernel's first launch, never at import; `build(name, force=True)` rebuilds.
+
+`Kernel` binds one library's C entry point and counts its launches.  Every
+entry point returns the CUDA error of its launch, and every source exports
+`repro_cuda_error_string` to name it.
 """
 from __future__ import annotations
 
@@ -65,3 +69,36 @@ def build(name: str, force: bool = False) -> tuple[Path, str]:
 def load(name: str) -> ctypes.CDLL:
     path, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+class Kernel:
+    """csrc/<name>.cu's C entry point `entry`, loaded at first launch, and
+    `launches`, the number of successful launches."""
+
+    def __init__(self, name: str, entry: str, argtypes: list):
+        self.name = name
+        self.entry = entry
+        self.argtypes = argtypes
+        self.launches = 0
+        self._lib = None
+
+    def library(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = load(self.name)
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, *args) -> None:
+        """Call the entry point; raise on a CUDA error, else count."""
+        lib = self.library()
+        err = getattr(lib, self.entry)(*args)
+        if err:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: CUDA error {err} "
+                f"({lib.repro_cuda_error_string(err).decode()})")
+        self.launches += 1

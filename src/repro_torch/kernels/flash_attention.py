@@ -7,7 +7,9 @@ kernel it takes any Sq and Skv: ragged tails are masked inside the kernel.
 
 `flash_attention` on CUDA tensors launches the kernel (building it at first
 use) or raises; on CPU tensors it computes the plain version,
-`ref.mha_reference`.  `KERNEL.launches` counts launches.
+`ref.mha_reference`.  `KERNEL.launches` counts launches.  There is no
+backward kernel, as the Pallas kernel has none: inputs that require grad
+raise, so no gradient is silently lost.
 """
 from __future__ import annotations
 
@@ -28,27 +30,7 @@ ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
 
 
-class _Kernel:
-    """The loaded library and its launch count."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-        self._lib = None
-
-    def library(self) -> ctypes.CDLL:
-        if self._lib is None:
-            lib = build.load(self.name)
-            fn = lib.repro_flash_attention_fwd
-            fn.argtypes = ARGTYPES
-            fn.restype = ctypes.c_int
-            lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.repro_cuda_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
-
-
-KERNEL = _Kernel("flash_attention")
+KERNEL = build.Kernel("flash_attention", "repro_flash_attention_fwd", ARGTYPES)
 
 
 def _check(q, k, v, window, prefix_len, logit_cap) -> None:
@@ -66,6 +48,10 @@ def _check(q, k, v, window, prefix_len, logit_cap) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention is a forward kernel with no "
+                         "backward: inputs that require grad take the plain "
+                         "path (repro_torch.models.attention.attend)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if prefix_len < 0:
@@ -97,18 +83,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"empty attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
     out = torch.empty_like(q)
-    lib = KERNEL.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_fwd(
+        KERNEL.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, h, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
             int(causal), window or 0, prefix_len, logit_cap or 0.0, stream)
-    if err:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: CUDA error {err} "
-            f"({lib.repro_cuda_error_string(err).decode()})")
-    KERNEL.launches += 1
     return out

@@ -38,3 +38,20 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def chunk_accum_reference(acc: torch.Tensor, update: torch.Tensor
+                          ) -> torch.Tensor:
+    """acc: [N, C] float32; update: [N, C] of any float dtype.
+    acc += update.float(), in place; returns acc."""
+    return acc.add_(update.to(acc.dtype))
+
+
+def chunk_accum_indexed_reference(acc: torch.Tensor, idx: torch.Tensor,
+                                  update: torch.Tensor, skip: int
+                                  ) -> torch.Tensor:
+    """acc: [M, C] float32; idx: [W] int64 rows of acc; update: [W, C].
+    acc[idx[j]] += update[j].float() for every j with idx[j] != skip, in
+    place; returns acc."""
+    keep = idx != skip
+    return acc.index_add_(0, idx[keep], update[keep].to(acc.dtype))

@@ -6,8 +6,12 @@ Masks are described by (causal, window, prefix_len) plus position vectors and
 evaluated inline.  Two execution paths:
 
 * kernel  -- the hand-written flash kernel (repro_torch.kernels) for every
-             CUDA call with more than one query row: prompt processing.
-* direct  -- one einsum with the mask inline: decode, and every CPU call.
+             CUDA call with more than one query row and no gradient to
+             carry: prompt processing.
+* direct  -- one einsum with the mask inline: decode, every CPU call, and
+             every call under autograd.  The kernel is a forward kernel only,
+             as the reference's is (its `pallas_call` has no VJP, and the
+             reference's training differentiates this plain path).
 
 The reference's third path, the blockwise online softmax in plain ops for
 more than 2048 rows, is not ported yet (ROADMAP.md, queue A).
@@ -121,12 +125,17 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B,S,H,D], k/v: [B,T,Hkv,D]; positions: [S]/[T] int, or None for
     0..S-1 / 0..T-1.
 
-    On CUDA with S > 1 this launches the flash kernel, which takes row and
-    column indices as positions: it is reached only with both positions None,
-    which callers pass where that holds by construction (a prompt processed
-    from its first token).  Explicit positions there raise."""
+    Under autograd (grad enabled and an input that requires grad) this takes
+    the plain path on every device, so gradients flow as in the reference.
+    Otherwise, on CUDA with S > 1 it launches the flash kernel, which takes
+    row and column indices as positions: it is reached only with both
+    positions None, which callers pass where that holds by construction (a
+    prompt processed from its first token).  Explicit positions there
+    raise."""
     s, t = q.shape[1], k.shape[1]
-    if q.is_cuda and s > 1:
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    if q.is_cuda and s > 1 and not needs_grad:
         if q_pos is not None or kv_pos is not None:
             raise ValueError("the flash kernel takes positions 0..S-1 only: "
                              "pass q_pos=kv_pos=None for such a call")
@@ -138,8 +147,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s == 1 or max(s, t) <= BLOCKWISE_THRESHOLD:
         return _direct_attend(q, k, v, q_pos, kv_pos, spec, logit_cap)
     raise NotImplementedError(
-        f"attention over {max(s, t)} rows off the card needs the blockwise "
-        f"path, which is not ported yet (ROADMAP.md queue A, item A3)")
+        f"attention over {max(s, t)} rows on the plain path (the CPU, or "
+        f"under autograd) needs the blockwise path, which is not ported yet "
+        f"(ROADMAP.md queue A, item A3)")
 
 
 # ---------------------------------------------------------------------- #

@@ -1,8 +1,9 @@
-"""Uniform Model interface; this slice of the port serves the dense family.
+"""Uniform Model interface; the port trains and serves the dense family.
 Counterpart of src/repro/models/model_zoo.py.
 
-    model = build_model(cfg)
+    model = build_model(cfg, remat=True)
     params = model.init(seed, dtype, device)             # a DecoderLM
+    loss, token_loss = model.loss(params, batch)         # train
     state = model.init_decode_state(batch, max_len, dtype, device)
     state, logits = model.prefill(params, batch, state)
     logits, state = model.decode_step(params, token, state, index)
@@ -30,6 +31,7 @@ _NOT_PORTED = {
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    remat: bool = False          # per-layer activation recomputation
 
     def init(self, seed: int, dtype=torch.float32, device="cuda"
              ) -> transformer.DecoderLM:
@@ -37,6 +39,12 @@ class Model:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         return transformer.init_lm(self.cfg, gen, dtype, device)
+
+    def loss(self, params: transformer.DecoderLM,
+             batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(total loss, token loss) of a batch with tokens [B, S]."""
+        return transformer.lm_loss(params, self.cfg, batch, remat=self.remat)
 
     def init_decode_state(self, batch_size: int, max_len: int,
                           dtype=torch.float32, device="cuda"
@@ -59,7 +67,7 @@ class Model:
         return logits, {"kv": kv}
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, remat: bool = False) -> Model:
     if cfg.family == "dense" and cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: dense configs with experts are not ported yet "
@@ -68,4 +76,4 @@ def build_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"(ROADMAP.md queue A, item {_NOT_PORTED[cfg.family]})")
-    return Model(cfg)
+    return Model(cfg, remat=remat)

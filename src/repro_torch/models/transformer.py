@@ -1,21 +1,29 @@
-"""Decoder-only transformer LM, dense family: the serving path.  Counterpart
-of src/repro/models/transformer.py.
+"""Decoder-only transformer LM, dense family: the training loss and the
+serving path.  Counterpart of src/repro/models/transformer.py.
 
 The layers are an `nn.ModuleList` run by a Python loop; gemma2's period-2
 local/global pattern picks each layer's MaskSpec by its index.  KV caches are
 stacked [L, B, T, Hkv, D] tensors that attention writes in place.
+
+`DecoderLM` and `DecoderLayer` have a generic `forward(fn, *args)` that
+returns `fn(module, *args)`, so `torch.func.functional_call` can run any of
+the functions here on swapped-in weights (the trainer's bf16 compute copy of
+fp32 masters).  Per-layer recomputation (`remat=True`) passes each layer's
+weights to `torch.utils.checkpoint` as inputs and swaps them in again for
+the recomputation, which runs after the outer swap has ended.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, MaskSpec, attention_forward,
                         init_attention, ring_positions)
-from .common import ModelConfig, dense_init, rms_norm, softcap
+from .common import ModelConfig, dense_init, resolve_device, rms_norm, softcap
 from .mlp import MLP, init_mlp, mlp_forward
 
 Caches = Tuple[torch.Tensor, torch.Tensor]
@@ -29,7 +37,14 @@ def _norm(d: int, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
 
 
-class DecoderLayer(nn.Module):
+class _Applied(nn.Module):
+    def forward(self, fn, *args):
+        """fn(self, *args): under `torch.func.functional_call`, fn sees the
+        swapped-in weights."""
+        return fn(self, *args)
+
+
+class DecoderLayer(_Applied):
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
         super().__init__()
         d = cfg.d_model
@@ -89,7 +104,7 @@ def layer_specs(cfg: ModelConfig) -> Tuple[MaskSpec, ...]:
     return (MaskSpec(causal=True, window=cfg.sliding_window),)
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(_Applied):
     """embed [V, d] (also the output projection when tied), the layers,
     final_norm, and lm_head as an `nn.Linear` when untied."""
 
@@ -107,14 +122,14 @@ class DecoderLM(nn.Module):
 
 @torch.no_grad()
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
-            dtype=torch.float32, device="cpu") -> DecoderLM:
-    """Random weights drawn on `device` from `generator` (which must live on
-    that device): normal * 1/sqrt(fan_in), embedding scale 0.02, norms 0.
-    The module is built on the meta device first, so no memory is filled
-    twice."""
+            dtype=torch.float32, device="cuda") -> DecoderLM:
+    """Random weights drawn on `device` (the card unless the caller asks for
+    the CPU) from `generator`, which must live on that device: normal *
+    1/sqrt(fan_in), embedding scale 0.02, norms 0.  The module is built on
+    the meta device first, so no memory is filled twice."""
     with torch.device("meta"):
         p = DecoderLM(cfg, dtype)
-    p = p.to_empty(device=device)
+    p = p.to_empty(device=resolve_device(device))
     dense_init(p.embed, cfg.d_model, generator, scale=0.02)
     for layer in p.layers:
         init_decoder_layer(layer, cfg, generator)
@@ -124,23 +139,51 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
+def _layer_output(layer: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
+                  positions: Optional[torch.Tensor], spec: MaskSpec
+                  ) -> torch.Tensor:
+    return decoder_layer(layer, cfg, h, positions, spec)[0]
+
+
+def _remat_layer(layer: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
+                 positions: Optional[torch.Tensor], spec: MaskSpec
+                 ) -> torch.Tensor:
+    """The layer with only its input saved for backward (the reference's
+    `jax.checkpoint` with `nothing_saveable`).  Its weights are checkpoint
+    inputs, so the recomputation sees the ones this forward saw."""
+    names, weights = zip(*layer.named_parameters())
+
+    def run(h, *ws):
+        return torch.func.functional_call(
+            layer, dict(zip(names, ws)),
+            (_layer_output, cfg, h, positions, spec))
+    return checkpoint(run, h, *weights, use_reentrant=False)
+
+
 def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
                   positions: Optional[torch.Tensor],
                   caches: Optional[Caches] = None,
                   cache_index: Optional[int] = None,
                   cache_positions: Optional[torch.Tensor] = None,
-                  prefix_len: int = 0,
+                  prefix_len: int = 0, remat: bool = False,
                   ) -> Tuple[torch.Tensor, Optional[Caches]]:
     """Run the layer stack.  caches: stacked (k, v) [L, B, T, Hkv, D],
-    written in place."""
+    written in place.  remat: recompute each layer in backward (training;
+    no caches)."""
     specs = layer_specs(cfg)
     if prefix_len:
         specs = tuple(
             MaskSpec(causal=s.causal, window=s.window, prefix_len=prefix_len)
             for s in specs)
+    if remat and caches is not None:
+        raise ValueError("remat is for training, which runs without caches")
     for i, layer in enumerate(params.layers):
+        spec = specs[i % len(specs)]
+        if remat:
+            h = _remat_layer(layer, cfg, h, positions, spec)
+            continue
         cache = None if caches is None else (caches[0][i], caches[1][i])
-        h, _ = decoder_layer(layer, cfg, h, positions, specs[i % len(specs)],
+        h, _ = decoder_layer(layer, cfg, h, positions, spec,
                              cache, cache_index, cache_positions)
     return h, caches
 
@@ -154,15 +197,87 @@ def embed_tokens(params: DecoderLM, cfg: ModelConfig,
     return h
 
 
+def _project(cfg: ModelConfig, h: torch.Tensor, final_norm: torch.Tensor,
+             w_out: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of h under the final norm and the [V, d] output
+    projection, with the final softcap."""
+    h = rms_norm(h, final_norm, cfg.norm_eps)
+    return softcap((h @ w_out.T).float(), cfg.final_logit_softcap)
+
+
+def _output_weight(params: DecoderLM) -> torch.Tensor:
+    return params.embed if params.lm_head is None else params.lm_head.weight
+
+
 def lm_logits(params: DecoderLM, cfg: ModelConfig,
               h: torch.Tensor) -> torch.Tensor:
     """fp32 logits, with the final softcap."""
-    h = rms_norm(h, params.final_norm, cfg.norm_eps)
-    if params.lm_head is None:
-        logits = h @ params.embed.T
-    else:
-        logits = params.lm_head(h)
-    return softcap(logits.float(), cfg.final_logit_softcap)
+    return _project(cfg, h, params.final_norm, _output_weight(params))
+
+
+# ---------------------------------------------------------------------- #
+# training loss
+# ---------------------------------------------------------------------- #
+
+LOSS_CHUNK = 512   # sequence positions per logits chunk
+
+
+def _chunk_nll(cfg: ModelConfig, hc: torch.Tensor, lc: torch.Tensor,
+               final_norm: torch.Tensor, w_out: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = _project(cfg, hc, final_norm, w_out)             # [B,c,V] f32
+    valid = lc != -100
+    safe = torch.where(valid, lc, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def next_token_loss(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
+                    tokens: torch.Tensor,
+                    loss_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Next-token cross-entropy WITHOUT materialising [B,S,V] logits: the
+    vocab projection + softcap + CE run chunked over the sequence, each
+    chunk recomputed in the backward pass.  At a 256k vocab the full fp32
+    logits of a 4 x 512 batch are 2.1 GB per chunk of 512 positions; chunking
+    caps live logits at LOSS_CHUNK/S of the whole."""
+    b, s = tokens.shape
+    labels = torch.cat([tokens[:, 1:].long(),
+                        torch.full((b, 1), -100, dtype=torch.long,
+                                   device=tokens.device)], dim=1)
+    if loss_mask is not None:
+        labels = torch.where(loss_mask > 0, labels, -100)
+    c = min(LOSS_CHUNK, s)
+    pad = (-s) % c
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
+    final_norm, w_out = params.final_norm, _output_weight(params)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.long, device=h.device)
+    for i in range(0, s + pad, c):
+        dn, dc = checkpoint(_chunk_nll, cfg, h[:, i:i + c],
+                            labels[:, i:i + c], final_norm, w_out,
+                            use_reentrant=False)
+        nll = nll + dn
+        cnt = cnt + dc
+    return nll / torch.clamp(cnt, min=1)
+
+
+def lm_loss(params: DecoderLM, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], prefix_len: int = 0,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens [B,S] int (+ optional loss_mask [B,S]).
+    Next-token loss, returned twice as (total, token loss): the dense family
+    has no auxiliary term (the reference adds 0.01 * its MoE aux, zero
+    here)."""
+    tokens = batch["tokens"]
+    h = embed_tokens(params, cfg, tokens)
+    h, _ = decoder_stack(params, cfg, h, None, prefix_len=prefix_len,
+                         remat=remat)
+    loss = next_token_loss(params, cfg, h, tokens, batch.get("loss_mask"))
+    return loss, loss
 
 
 # ---------------------------------------------------------------------- #
@@ -178,7 +293,10 @@ def kv_cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_kv_caches(cfg: ModelConfig, batch: int, max_len: int,
-                   dtype=torch.float32, device="cpu") -> Caches:
+                   dtype=torch.float32, device="cuda") -> Caches:
+    """Zeroed stacked caches on `device`: the card unless the caller asks
+    for the CPU."""
+    device = resolve_device(device)
     clen = kv_cache_len(cfg, max_len)
     shape = (cfg.num_layers, batch, clen, cfg.num_kv_heads, cfg.hd)
     return (torch.zeros(shape, dtype=dtype, device=device),

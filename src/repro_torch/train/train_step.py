@@ -1,0 +1,103 @@
+"""The training step: loss -> grad -> (optional gradient reduction) ->
+AdamW, with microbatch gradient accumulation and a dtype policy.
+Counterpart of src/repro/train/train_step.py.
+
+The parameters are float32 masters.  Each microbatch runs the model through
+`torch.func.functional_call` on a copy of the parameters cast once to the
+compute dtype (`cast_params`), so the gradients land in float32 on the
+masters, as the reference's `cast_params` + `value_and_grad` gives them.
+The `grad_reduce` hook is where data parallelism plugs in: the paper's
+tree-pipeline allreduce (`repro_torch.comms.BucketedAllReduce`) or
+`torch.distributed.all_reduce`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.model_zoo import Model
+
+from .optimizer import AdamWConfig, AdamWState, adamw_update, init_adamw
+
+Grads = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    microbatches: int = 1                 # grad accumulation steps
+    compute_dtype: Any = torch.float32    # bf16 on the card
+
+
+def cast_params(params: nn.Module, dtype) -> Grads:
+    """The floating-point parameters cast to `dtype` (differentiably; a
+    parameter already in `dtype` is itself)."""
+    return {n: p.to(dtype) if p.is_floating_point() else p
+            for n, p in params.named_parameters()}
+
+
+def loss_and_grad(model: Model, params: nn.Module,
+                  batch: Dict[str, torch.Tensor], cfg: TrainConfig
+                  ) -> Tuple[torch.Tensor, Grads, torch.Tensor]:
+    """Returns (loss, grads, token loss), averaged over microbatches.  The
+    grads are the parameters' `.grad` tensors, float32, in module order."""
+    for p in params.parameters():
+        p.grad = None
+    n = max(cfg.microbatches, 1)
+    b = batch["tokens"].shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} not divisible by microbatches {n}")
+    device = next(params.parameters()).device
+    loss = torch.zeros((), dtype=torch.float32, device=device)
+    tok = torch.zeros((), dtype=torch.float32, device=device)
+    for i in range(n):
+        mb = {k: v[i * b // n:(i + 1) * b // n] for k, v in batch.items()}
+        cast = cast_params(params, cfg.compute_dtype)
+        total, token_loss = torch.func.functional_call(
+            params, cast, (model.loss, mb))
+        del cast
+        total.backward()
+        loss = loss + total.detach().float()
+        tok = tok + token_loss.detach().float()
+    grads = {name: p.grad for name, p in params.named_parameters()}
+    if n > 1:
+        for g in grads.values():
+            g.div_(n)
+    return loss / n, grads, tok / n
+
+
+def make_train_step(model: Model, cfg: TrainConfig,
+                    grad_reduce: Optional[Callable[[Grads], Grads]] = None):
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics),
+    updating params and opt_state in place.
+
+    grad_reduce: optional callable applied to the gradient dict before the
+    optimizer — the hook where the paper's tree-pipeline allreduce plugs in.
+    It also reduces the scalar loss, as {"loss": loss}."""
+
+    def train_step(params: nn.Module, opt_state: AdamWState,
+                   batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[nn.Module, AdamWState, Dict[str, Any]]:
+        loss, grads, tok = loss_and_grad(model, params, batch, cfg)
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
+            loss = grad_reduce({"loss": loss})["loss"]
+        params, opt_state, metrics = adamw_update(
+            cfg.optimizer, grads, opt_state, params)
+        for p in params.parameters():
+            p.grad = None
+        metrics = dict(metrics, loss=loss, token_loss=tok)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def init_train_state(model: Model, seed: int, device="cuda"
+                     ) -> Tuple[nn.Module, AdamWState]:
+    """float32 master parameters from `seed` on `device`, and fresh AdamW
+    state."""
+    params = model.init(seed, torch.float32, device)
+    return params, init_adamw(params)

@@ -55,7 +55,7 @@ def lm_pair(name, seed=0):
         return leaf
     tree = jax.tree_util.tree_map_with_path(perturb, tree)
     params = jax.tree.map(jnp.asarray, tree)
-    return cfg_j, cfg_t, params, from_jax_params(cfg_t, tree)
+    return cfg_j, cfg_t, params, from_jax_params(cfg_t, tree, device="cpu")
 
 
 def normal(rng, *shape):
@@ -225,7 +225,7 @@ def test_lm_prefill_and_decode_logits_match_jax(name):
     b, s, max_len = 2, 20, 32
     tokens = rng.integers(1, cfg_t.vocab_size, (b, s), dtype=np.int32)
     caches_j = jtf.init_kv_caches(cfg_j, b, max_len)
-    caches_t = ttf.init_kv_caches(cfg_t, b, max_len)
+    caches_t = ttf.init_kv_caches(cfg_t, b, max_len, device="cpu")
     caches_j, ref = jtf.lm_prefill(pj, cfg_j, jnp.asarray(tokens), caches_j)
     caches_t, got = ttf.lm_prefill(pt, cfg_t, torch.from_numpy(tokens),
                                    caches_t)

@@ -2,6 +2,8 @@
 with the same weights, the launch entry point, and the port's isolation from
 jax and repro."""
 import os
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -40,7 +42,7 @@ def test_engine_tokens_and_logits_match_jax(name):
     cfg_j, cfg_t = jax_reduced(name), reduced_config(name)
     model_j = jax_build(cfg_j)
     pj = model_j.init(jax.random.PRNGKey(0))
-    pt = from_jax_params(cfg_t, jax.tree.map(np.asarray, pj))
+    pt = from_jax_params(cfg_t, jax.tree.map(np.asarray, pj), device="cpu")
 
     eng_j = JaxEngine(model_j, pj, batch_size=2, max_len=128)
     eng_t = ServingEngine(build_model(cfg_t), pt, batch_size=2, max_len=128)
@@ -65,7 +67,7 @@ def test_engine_tokens_and_logits_match_jax(name):
             toks[i, plen - o.prompt_len:] = o.tokens[:o.prompt_len]
         clen = min(128, plen + 6 + 1)
         cj = jtf.init_kv_caches(cfg_j, len(batch), clen)
-        ct = ttf.init_kv_caches(cfg_t, len(batch), clen)
+        ct = ttf.init_kv_caches(cfg_t, len(batch), clen, device="cpu")
         cj, lj = prefill_j(pj, cfg_j, jnp.asarray(toks), cj)
         with torch.inference_mode():
             ct, lt = ttf.lm_prefill(pt, cfg_t, torch.from_numpy(toks), ct)
@@ -132,3 +134,26 @@ def test_port_imports_neither_jax_nor_repro():
                          env=dict(os.environ, PYTHONPATH=SRC))
     assert out.returncode == 0, out.stderr[-2000:]
     assert int(out.stdout.strip()) >= 20    # every module was imported
+
+
+FORBIDDEN = re.compile(r"\bimport jax\b|\bfrom jax\b|\bimport repro\b(?!_)"
+                       r"|\bfrom repro\.")
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    """The text of every module of the port and of chip_smoke.py, so imports
+    inside functions count too: no `import jax`, `from jax`, `import repro`
+    or `from repro.` (repro_torch is the port itself)."""
+    root = pathlib.Path(SRC).parent
+    files = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) > 40
+    hits = [f"{f.relative_to(root)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if FORBIDDEN.search(line)]
+    assert not hits, hits
+    assert FORBIDDEN.search("    from repro.core.graph import DiGraph")
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert not FORBIDDEN.search("from repro_torch.core import plan")
+
