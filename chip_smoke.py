@@ -54,6 +54,29 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 12. nccl_p2p        with two or more cards: the P2P form under NCCL at world =
                     the card count, bit-equal to the stacked form; with one
                     card it prints that it did not run.
+13. ssd_vs_plain    the SSD intra-chunk kernel against its plain PyTorch
+                    version on the card, y and states, f32 and bf16, chunks
+                    Q of 16, 64, 256 and 512, head dims P and state dims N
+                    from 16 to 128, in the Pallas layout and in the model's
+                    (transposed views, b and c shared by every head); errors
+                    and times at mamba2-780m's and zamba2-1.2b's prefill
+                    shapes beside the bound and the plain version, rotating
+                    over inputs beyond L2.
+14. ssm_model_vs_cpu
+                    reduced mamba2-780m and zamba2-1.2b, the same weights on
+                    the card (kernel path) and on the CPU (plain path):
+                    prefill and decode logits agree; one SSD launch per
+                    Mamba2 layer in prefill (and one flash launch per shared
+                    attention site for zamba2).
+15. serve_ssm       serving path of the ssm and hybrid families:
+                    mamba2-780m (48 layers, d_model 1536) and zamba2-1.2b (38
+                    Mamba2 layers, d_model 2048, shared attention every 6) at
+                    full width, bf16, random weights from --seed, 4 prompts in
+                    batches of 2 whose padded lengths are multiples of the
+                    chunk; the SSD kernel is launched once per Mamba2 layer
+                    per batch, the flash kernel once per zamba2 site.
+16. ssm_entry_point `python -m repro_torch.launch.serve --arch mamba2-780m
+                    --reduced --prompt-len 32` with no --device flag exits 0.
 
 Then the card's line from nvidia-smi, a `kernels` JSON line, and as the last
 line {"ok": true, "device": {...}}.
@@ -84,6 +107,16 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL = {torch.float32: 1e-4,   # accumulation order
        torch.bfloat16: 2e-2}  # the output's rounding
 MODEL_ATOL = 1e-4             # fp32 logits, kernel vs plain attention
+# SSD block, kernel vs plain on the same inputs: f32 differs in the order of
+# the sums; with bf16 inputs both compute in f32 and y differs by one bf16
+# rounding (no looser than tests/test_kernels.py's atol 0.35, rtol 0.1);
+# states are f32 in both
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)
+SSD_TOL_BF16_Y = dict(atol=1e-3, rtol=2.0 ** -7)
+# mamba2-780m prefill: 2 prompts of 2048 tokens, 48 heads of 64, state 128
+SSD_MAIN = dict(b=2, s=2048, h=48, p=64, n=128, q=512)
+# zamba2-1.2b prefill: 2 prompts of 1024 tokens, 64 heads of 64, state 64
+SSD_ZAMBA2 = dict(b=2, s=1024, h=64, p=64, n=64, q=256)
 MAIN = dict(b=2, h=32, hkv=8, s=1024, d=128)   # qwen3-8b prefill attention
 DEV = "cuda"
 RANKS = 8                     # data-parallel ranks stacked on the card
@@ -145,7 +178,7 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
-    names = ("flash_attention", "chunk_accum")
+    names = ("flash_attention", "chunk_accum", "ssd_chunk")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         built = list(pool.map(lambda n: build.build(n, force=True), names))
@@ -672,6 +705,258 @@ def phase_nccl_p2p(seed: int) -> None:
          bit_equal_stacked=True, seconds=time.perf_counter() - t0)
 
 
+def _ssd_inputs(gen, b, s, h, p, n, dtype):
+    """x [B,S,H,P], dt [B,S,H] f32 (softplus of a normal), a [H] (-exp of a
+    normal), b, c [B,S,N] shared by every head: the distributions of
+    tests/test_kernels.py, in the model's layout."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+    return (rnd(b, s, h, p).to(dtype),
+            torch.nn.functional.softplus(rnd(b, s, h)), -torch.exp(rnd(h)),
+            rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype))
+
+
+def _ssd_err(got, ref, dtype):
+    """(max abs error, within tolerance, bit-equal) of (y, states) against
+    the plain version's."""
+    (gy, gs), (ry, rs) = got, ref
+    ytol = SSD_TOL if dtype == torch.float32 else SSD_TOL_BF16_Y
+    ok = torch.allclose(gy.float(), ry.float(), **ytol) and \
+        torch.allclose(gs, rs, **SSD_TOL)
+    err = max((gy.float() - ry.float()).abs().max().item(),
+              (gs - rs).abs().max().item())
+    return err, ok, torch.equal(gy, ry) and torch.equal(gs, rs)
+
+
+def phase_ssd_vs_plain(seed: int) -> dict:
+    from repro_torch.kernels import ssd_chunk_intra, ssd_chunk_intra_bshp
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    pns = [(16, 16), (32, 64), (64, 128), (128, 32), (64, 64), (128, 128)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases, equal, failures = 0, 0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for q in (16, 64, 256, 512):
+            for p, n in pns:
+                x, dt, a, b, c = _ssd_inputs(gen, 2, 2 * q, 3, p, n, dtype)
+                ref = ssd_chunk_intra_bshp(x, dt, a, b, c, q, plain=True)
+                # the model's layout: transposed views, shared b and c
+                got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
+                torch.cuda.synchronize()
+                # the Pallas layout, on flat copies
+                bs, s, h = x.shape[:3]
+                y, st = ssd_chunk_intra(
+                    x.transpose(1, 2).reshape(bs * h, s, p),
+                    dt.transpose(1, 2).reshape(bs * h, s), a.repeat(bs),
+                    b.repeat_interleave(h, 0), c.repeat_interleave(h, 0), q)
+                torch.cuda.synchronize()
+                got_flat = (y.view(bs, h, s, p).transpose(1, 2),
+                            st.view(bs, h, s // q, p, n).transpose(1, 2))
+                for label, g in (("bshp", got), ("flat", got_flat)):
+                    err, ok, same = _ssd_err(g, ref, dtype)
+                    cases += 1
+                    equal += same
+                    worst[dtype] = max(worst[dtype], err)
+                    if not ok:
+                        failures.append((label, str(dtype), q, p, n, err))
+    assert not failures, f"SSD kernel disagrees with its plain version: " \
+        f"{failures}"
+
+    res = dict(cases=cases, bit_equal_cases=equal,
+               max_abs_err_f32=worst[torch.float32],
+               max_abs_err_bf16=worst[torch.bfloat16],
+               tol_f32=SSD_TOL, tol_bf16_y=SSD_TOL_BF16_Y)
+    # the serving shapes: mamba2-780m's (the table's row) and zamba2-1.2b's
+    main = _ssd_time(gen, SSD_MAIN)
+    res.update(main, library_ms=None,
+               library="none: no single PyTorch call computes this function",
+               zamba2=_ssd_time(gen, SSD_ZAMBA2))
+    emit("ssd_vs_plain", **res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
+    """Error against the plain version, times, and bound of the SSD block at
+    one serving shape, bf16, as the model calls it, rotating over `sets`
+    inputs (tens of MB moved per call, beyond L2 in all)."""
+    from repro_torch.kernels import ssd_chunk_intra_bshp
+    inputs = [_ssd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
+                          torch.bfloat16) for _ in range(sets)]
+    err, ok, _ = _ssd_err(
+        ssd_chunk_intra_bshp(*inputs[0], m["q"]),
+        ssd_chunk_intra_bshp(*inputs[0], m["q"], plain=True), torch.bfloat16)
+    assert ok, (m, err)
+
+    def kernel():
+        for args in inputs:
+            ssd_chunk_intra_bshp(*args, m["q"])
+
+    def plain():
+        for args in inputs:
+            ssd_chunk_intra_bshp(*args, m["q"], plain=True)
+
+    plain_ms = cuda_ms(plain, iters=3, warmup=1) / sets
+    kernel_ms = cuda_ms(kernel, iters=10) / sets
+    kernel_ms = (kernel_ms + cuda_ms(kernel, iters=10) / sets) / 2
+    plain_ms = (plain_ms + cuda_ms(plain, iters=3, warmup=1) / sets) / 2
+    bh, chunks, q = m["b"] * m["h"], m["s"] // m["q"], m["q"]
+    # both Q x Q products over the causal pairs i >= j, and the state
+    flops = 2 * bh * chunks * (q * (q + 1) // 2 * (m["n"] + m["p"])
+                               + q * m["p"] * m["n"])
+    x, dt, a, b, c = inputs[0]
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+              + a.numel() * 4 + (b.numel() + c.numel()) * b.element_size()
+              + bh * chunks * m["p"] * m["n"] * 4)   # x, y, dt, a, b, c, states
+    bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return dict(main_shape=m, main_dtype="bfloat16", main_max_abs_err=err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound[bound_by], bound_by=bound_by, flops=flops,
+                bytes=nbytes, fp32_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+                timed_sets=sets)
+
+
+def phase_ssm_model_vs_cpu(seed: int) -> None:
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import FLASH_KERNEL, SSD_KERNEL
+    from repro_torch.models import build_model
+    from repro_torch.models.hybrid import num_shared_sites
+    for name in ("mamba2-780m", "zamba2-1.2b"):
+        cfg = reduced_config(name)
+        model = build_model(cfg)
+        cpu = model.init(seed, torch.float32, "cpu")
+        gpu = copy.deepcopy(cpu).to(DEV)
+        rng = np.random.default_rng(seed)
+        b, s, max_len = 2, 2 * cfg.ssm_chunk, 64   # two chunks
+        tokens = torch.from_numpy(
+            rng.integers(1, cfg.vocab_size, (b, s), dtype=np.int64))
+        ssd, flash = SSD_KERNEL.launches, FLASH_KERNEL.launches
+        worst = 0.0
+        with torch.inference_mode():
+            sc, lc = model.prefill(cpu, {"tokens": tokens},
+                                   model.init_decode_state(b, max_len,
+                                                           device="cpu"))
+            sg, lg = model.prefill(gpu, {"tokens": tokens.to(DEV)},
+                                   model.init_decode_state(b, max_len,
+                                                           device=DEV))
+            ssd, flash = SSD_KERNEL.launches - ssd, \
+                FLASH_KERNEL.launches - flash
+            for index in range(s, s + 4):
+                worst = max(worst, (lg.cpu() - lc).abs().max().item())
+                tok = lc[:, -1].argmax(-1)[:, None]
+                lc, sc = model.decode_step(cpu, tok, sc, index)
+                lg, sg = model.decode_step(gpu, tok.to(DEV), sg, index)
+            worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        sites = num_shared_sites(cfg) if cfg.family == "hybrid" else 0
+        assert torch.isfinite(lg).all()
+        assert ssd == cfg.num_layers, (name, ssd)
+        assert flash == sites, (name, flash)
+        assert worst <= MODEL_ATOL, (name, worst)
+        emit("ssm_model_vs_cpu", arch=name, reduced=True, prompt=[b, s],
+             decode_steps=4, max_abs_logit_err=worst, atol=MODEL_ATOL,
+             ssd_launches_in_prefill=ssd, flash_launches_in_prefill=flash)
+
+
+SSM_SERVE = {"mamba2-780m": (2048, 1531, 2048, 700),
+             "zamba2-1.2b": (1024, 1000, 512, 300)}
+
+
+def phase_serve_ssm(seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import FLASH_KERNEL, SSD_KERNEL
+    from repro_torch.models import build_model
+    from repro_torch.models.hybrid import num_shared_sites
+    from repro_torch.serve import Request, ServingEngine
+    results = {"ssd_launches": 0}
+    for name, plens in SSM_SERVE.items():
+        cfg = get_config(name)
+        model = build_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(seed, torch.bfloat16, DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        new_tokens, batch_size = 16, 2
+        engine = ServingEngine(model, params, batch_size=batch_size,
+                               max_len=4096)
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(1, cfg.vocab_size, n, dtype=np.int32)
+                   for n in plens]
+        for i, p in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+        batches = [plens[i:i + batch_size]
+                   for i in range(0, len(plens), batch_size)]
+        assert all(max(bt) % cfg.ssm_chunk == 0 for bt in batches)
+
+        SSD_KERNEL.launches = FLASH_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        outs = engine.run()
+        wall_s = time.perf_counter() - t0
+        ssd, flash = SSD_KERNEL.launches, FLASH_KERNEL.launches
+
+        assert [o.uid for o in outs] == list(range(len(plens)))
+        for o, p in zip(outs, prompts):
+            assert o.prompt_len == len(p)
+            assert len(o.tokens) == len(p) + new_tokens
+            assert (o.tokens[:len(p)] == p).all()
+            new = o.tokens[len(p):]
+            assert ((new >= 0) & (new < cfg.vocab_size)).all()
+        sites = num_shared_sites(cfg) if cfg.family == "hybrid" else 0
+        assert ssd == cfg.num_layers * len(batches), (name, ssd)
+        assert flash == sites * len(batches), (name, flash)
+        # the first batch's prefill logits: finite, of the expected shape
+        with torch.inference_mode():
+            toks = torch.from_numpy(np.stack(
+                [prompts[0], np.pad(prompts[1], (plens[0] - plens[1], 0))]
+            ).astype(np.int64)).to(DEV)
+            _, logits = model.prefill(params, {"tokens": toks},
+                                      model.init_decode_state(
+                                          2, plens[0] + 1, device=DEV))
+        assert logits.shape == (2, 1, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+        st = engine.stats
+        res = dict(arch=name, family=cfg.family, layers=cfg.num_layers,
+                   d_model=cfg.d_model, ssm_chunk=cfg.ssm_chunk,
+                   dtype="bfloat16", params=n_params, init_s=init_s,
+                   prompts=list(plens), batch_size=batch_size,
+                   new_tokens=new_tokens, batches=len(batches),
+                   wall_s=wall_s, prefill_s=st["prefill_s"],
+                   decode_s=st["decode_s"],
+                   prefill_tokens=st["prefill_tokens"],
+                   decode_tokens=st["decode_tokens"],
+                   prefill_tok_per_s=st["prefill_tokens"] / st["prefill_s"],
+                   decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
+                   ssd_launches=ssd, flash_launches=flash,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9,
+                   completions=[[int(t) for t in o.tokens[o.prompt_len:]]
+                                for o in outs])
+        emit("serve_ssm", **res)
+        results[name] = res
+        results["ssd_launches"] += ssd
+        del engine, params, logits
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_ssm_entry_point() -> None:
+    t0 = time.perf_counter()
+    cmd = ["-m", "repro_torch.launch.serve", "--arch", "mamba2-780m",
+           "--reduced", "--prompt-len", "32"]
+    proc = subprocess.run(
+        [sys.executable, *cmd], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    served = [l for l in proc.stdout.splitlines() if l.startswith("req ")]
+    assert len(served) == 6, proc.stdout
+    emit("ssm_entry_point", command="python " + " ".join(cmd),
+         rc=proc.returncode, requests=len(served),
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -698,6 +983,10 @@ def main() -> int:
     phase_train_vs_cpu(args.seed)
     phase_train_entry_point()
     phase_nccl_p2p(args.seed)
+    ssd = phase_ssd_vs_plain(args.seed)
+    phase_ssm_model_vs_cpu(args.seed)
+    ssm_serve = phase_serve_ssm(args.seed)
+    phase_ssm_entry_point()
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -718,7 +1007,16 @@ def main() -> int:
         "held_against_plain": True,
         "ms": accum["kernel_ms"], "plain_ms": accum["plain_ms"],
         "bound_ms": accum["bound_ms"], "bound_by": accum["bound_by"],
-        "library_ms": accum["library_ms"]}]}))
+        "library_ms": accum["library_ms"]}, {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:32",
+        "launches": ssm_serve["ssd_launches"],
+        "max_abs_err": ssd["main_max_abs_err"],
+        "held_against_plain": True,
+        "ms": ssd["kernel_ms"], "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+        "library_ms": ssd["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,29 @@
 """Carry weights across from the JAX reference.
 
-`from_jax_params(cfg, tree)` takes the reference's dense-LM param pytree as
-nested dicts of numpy arrays, layers stacked [L, ...], and returns the port's
-`DecoderLM` with the same weights: the layers are split, and every 2-D weight
-inside a layer, and the untied lm_head, is transposed into `nn.Linear`'s
-[out, in] layout.  The embedding keeps its [V, d] layout.  The result lies
-on the card unless the caller passes device="cpu".
+`from_jax_params(cfg, tree)` takes the reference's LM param pytree (the
+dense family's `init_lm`, `init_ssm_lm` or `init_hybrid_lm`) as nested dicts
+of numpy arrays, layers stacked [L, ...], and returns the port's module of
+the config's family with the same weights.  The layers are split; every
+leaf whose port counterpart is an `nn.Linear` (the projections, and the
+untied lm_head) is transposed into its [out, in] layout; every other leaf
+keeps its layout: the embedding [V, d], the norms, Mamba2's conv taps
+[W, C] and its per-head vectors.  Unstacked subtrees (zamba2's one `shared`
+block) are carried across as they are.  The result lies on the card unless
+the caller passes device="cpu".
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from .models.common import ModelConfig, resolve_device
+from .models.hybrid import HybridLM, SSMLM
 from .models.transformer import DecoderLM
+
+_MODULES = {"dense": DecoderLM, "ssm": SSMLM, "hybrid": HybridLM}
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -25,36 +33,41 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.tensor(a)                  # a copy: jax's arrays are read-only
 
 
-def _linear(a: Any) -> torch.Tensor:
-    return _tensor(a).T.contiguous()
-
-
-def _layer_entries(prefix: str, tree: Mapping, i: int,
-                   out: Dict[str, torch.Tensor]) -> None:
+def _entries(prefix: str, tree: Mapping, layer: Optional[int],
+             targets: set, out: Dict[str, torch.Tensor]) -> None:
+    """Leaves of `tree` into `out` under the port's names; `layer` picks
+    one slice of stacked leaves."""
     for name, leaf in tree.items():
         key = f"{prefix}{name}"
         if isinstance(leaf, Mapping):
-            _layer_entries(key + ".", leaf, i, out)
-        elif np.ndim(leaf) == 3:            # [L, in, out] -> nn.Linear
-            out[key + ".weight"] = _linear(leaf[i])
-        else:                               # [L, d] norm weights
-            out[key] = _tensor(leaf[i])
+            _entries(key + ".", leaf, layer, targets, out)
+            continue
+        value = _tensor(leaf if layer is None else np.asarray(leaf)[layer])
+        if key + ".weight" in targets:      # [in, out] -> nn.Linear
+            out[key + ".weight"] = value.T.contiguous()
+        elif key in targets:
+            out[key] = value
+        else:
+            raise KeyError(f"{key}: no counterpart in the port's module")
 
 
 def from_jax_params(cfg: ModelConfig, tree: Mapping,
-                    device="cuda") -> DecoderLM:
-    """The port's DecoderLM with the weights of `tree`, on `device`: the
-    card unless the caller asks for the CPU."""
+                    device="cuda") -> nn.Module:
+    """The port's DecoderLM, SSMLM or HybridLM with the weights of `tree`,
+    on `device`: the card unless the caller asks for the CPU."""
     device = resolve_device(device)
-    sd: Dict[str, torch.Tensor] = {
-        "embed": _tensor(tree["embed"]),
-        "final_norm": _tensor(tree["final_norm"]),
-    }
-    if "lm_head" in tree:
-        sd["lm_head.weight"] = _linear(tree["lm_head"])
-    for i in range(cfg.num_layers):
-        _layer_entries(f"layers.{i}.", tree["layers"], i, sd)
+    embed = _tensor(tree["embed"])
     with torch.device("meta"):
-        p = DecoderLM(cfg, sd["embed"].dtype)
+        p = _MODULES[cfg.family](cfg, embed.dtype)
+    targets = set(p.state_dict())
+    sd: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        if name == "layers":
+            for i in range(cfg.num_layers):
+                _entries(f"layers.{i}.", leaf, i, targets, sd)
+        elif isinstance(leaf, Mapping):
+            _entries(name + ".", leaf, None, targets, sd)
+        else:
+            _entries("", {name: leaf}, None, targets, sd)
     p.load_state_dict(sd, strict=True, assign=True)
     return p.to(device)

@@ -4,6 +4,8 @@
                      src/repro/kernels/flash_attention.py)
     chunk_accum      csrc/chunk_accum.cu      (replaces the Pallas
                      src/repro/kernels/chunk_accum.py)
+    ssd_chunk        csrc/ssd_chunk.cu        (replaces the Pallas
+                     src/repro/kernels/ssd_scan.py)
 
 Kernels build with nvcc at first launch (`build.py`), never at import.
 """
@@ -11,6 +13,9 @@ from .chunk_accum import KERNEL as CHUNK_ACCUM_KERNEL  # noqa: F401
 from .chunk_accum import chunk_accum, chunk_accum_indexed  # noqa: F401
 from .flash_attention import KERNEL as FLASH_KERNEL  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
-from .ops import flash_attention_bshd  # noqa: F401
+from .ops import flash_attention_bshd, ssd_chunk_intra_bshp  # noqa: F401
 from .ref import (chunk_accum_indexed_reference,  # noqa: F401
-                  chunk_accum_reference, mha_reference)
+                  chunk_accum_reference, mha_reference, ssd_chunk_reference,
+                  ssd_chunk_intra_reference)
+from .ssd_scan import KERNEL as SSD_KERNEL  # noqa: F401
+from .ssd_scan import ssd_chunk_intra, ssd_chunk_intra_heads  # noqa: F401

@@ -6,7 +6,7 @@ the CPU path of every wrapper and the oracle the card's kernel is held to.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,3 +55,79 @@ def chunk_accum_indexed_reference(acc: torch.Tensor, idx: torch.Tensor,
     place; returns acc."""
     keep = idx != skip
     return acc.index_add_(0, idx[keep], update[keep].to(acc.dtype))
+
+
+def ssd_chunk_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Single-chunk SSD intra-chunk output (no inter-chunk state), the
+    oracle of src/repro/kernels/ref.py.
+    x: [Q,H,P], dt: [Q,H], a: [H], b,c: [Q,N] -> y [Q,H,P]."""
+    q = x.shape[0]
+    da = dt * a[None, :]                                  # [Q,H]
+    cs = torch.cumsum(da, dim=0)
+    diff = cs[:, None, :] - cs[None, :, :]                # [i,j,H]
+    mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    ll = torch.where(mask[..., None], torch.exp(diff), 0.0)
+    scores = c @ b.T                                      # [i,j]
+    xdt = x * dt[..., None]
+    return torch.einsum("ij,ijh,jhp->ihp", scores, ll, xdt)
+
+
+def ssd_chunk_intra_reference(x: torch.Tensor, dt: torch.Tensor,
+                              a: torch.Tensor, b: torch.Tensor,
+                              c: torch.Tensor, chunk: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The intra-chunk SSD of every (batch*head, chunk) block: what the
+    Pallas kernel `_ssd_chunk_kernel` computes.
+    x: [BH,S,P], dt: [BH,S], a: [BH], b, c: [BH,S,N], S a multiple of chunk.
+    Returns (y_diag [BH,S,P] in x's dtype, states [BH,S//chunk,P,N] f32):
+
+        L[i,j] = exp(cum[i] - cum[j]) for i >= j, else 0, cum = cumsum(dt*a)
+        y[i]   = sum_j (C[i].B[j]) L[i,j] x[j] dt[j]
+        state  = sum_j exp(cum[Q-1] - cum[j]) (x[j] dt[j]) (x) B[j]
+
+    in float32, except that the cumulative sum of dt*a is taken in float64
+    and each difference is rounded to float32 once: a float32 cumsum over a
+    512-row chunk carries errors of ~1e-4 into L, which would depend on the
+    order of the sum; the kernel computes the same float64 sum."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} must divide chunk {chunk}")
+    l = s // chunk
+    xf = x.float().reshape(bh, l, chunk, p)
+    dtf = dt.float().reshape(bh, l, chunk)
+    bf = b.float().reshape(bh, l, chunk, n)
+    cf = c.float().reshape(bh, l, chunk, n)
+    da = dtf * a.float()[:, None, None]                   # [BH,L,Q]
+    cum = torch.cumsum(da, dim=-1, dtype=torch.float64)
+    diff = (cum[..., :, None] - cum[..., None, :]).float()
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))
+    ll = torch.where(mask, torch.exp(diff), 0.0)          # a select: exp of
+    # the positive differences above the diagonal may overflow to inf
+    xdt = xf * dtf[..., None]                             # [BH,L,Q,P]
+    scores = cf @ bf.transpose(-1, -2)                    # [BH,L,Q,Q]
+    y = (scores * ll) @ xdt
+    decay = torch.exp((cum[..., -1:] - cum).float())      # [BH,L,Q]
+    states = xdt.transpose(-1, -2) @ (bf * decay[..., None])
+    return y.reshape(bh, s, p).to(x.dtype), states
+
+
+def ssd_chunk_intra_heads_reference(x: torch.Tensor, dt: torch.Tensor,
+                                    a: torch.Tensor, b: torch.Tensor,
+                                    c: torch.Tensor, chunk: int
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ssd_chunk_intra_reference on the heads layout of
+    `ssd_scan.ssd_chunk_intra_heads`: x [B,H,S,P], dt [B,H,S], a [B,H],
+    b, c [B,G,S,N] with G = H or 1 (every head reads the same b, c), any
+    broadcastable strides.  Returns (y [B,H,S,P], states [B,H,L,P,N] f32);
+    the flattening copies b and c once per head."""
+    bs, h, s, p = x.shape
+    n = b.shape[-1]
+    y, states = ssd_chunk_intra_reference(
+        x.reshape(bs * h, s, p), dt.reshape(bs * h, s),
+        a.expand(bs, h).reshape(bs * h),
+        b.expand(bs, h, s, n).reshape(bs * h, s, n),
+        c.expand(bs, h, s, n).reshape(bs * h, s, n), chunk)
+    return y.reshape(bs, h, s, p), states.reshape(bs, h, s // chunk, p, n)

@@ -1,0 +1,141 @@
+"""Mamba2 SSD intra-chunk block: the wrapper around the Hopper kernel.
+
+The kernel, `csrc/ssd_chunk.cu`, replaces the Pallas TPU kernel
+`_ssd_chunk_kernel` / `ssd_chunk_intra` in src/repro/kernels/ssd_scan.py;
+its source says what bounds it on an H100 and how the design answers that.
+Two entry points share it:
+
+* `ssd_chunk_intra(x, dt, a, b, c, chunk)`: the Pallas kernel's layout,
+  x [BH,S,P], dt [BH,S], a [BH], b, c [BH,S,N];
+* `ssd_chunk_intra_heads(...)`: x [B,H,S,P] and b, c [B,G,S,N] with G = H
+  or 1, read through their strides, so a transposed view of the model's
+  [B,S,H,P] activations and b, c shared by every head are never copied;
+  y and the states may be written into views given as `y` and `states`.
+
+On CUDA tensors each launches the kernel (building it at first use) or
+raises; on CPU tensors each computes its plain version in `ref.py`.
+`KERNEL.launches` counts launches.  There is no backward kernel, as the
+Pallas kernel has none: inputs that require grad raise, so no gradient is
+silently lost; the model's `ssd_chunked` takes the plain version under
+autograd on every device instead, as `attend` does for attention.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import build
+from .ref import ssd_chunk_intra_heads_reference
+
+DIMS = (16, 32, 64, 128)        # head dims P and state dims N it takes
+MAX_CHUNK = 4096
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# repro_ssd_chunk_fwd's C parameters: x, dt, a, b, c, y, states; dtype,
+# batch, heads, seqlen, chunk, p, n; the strides of x, dt (b, h, s), a (b,
+# h), b, c, y (b, h, s), states (b, h, chunk); stream
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 20
+            + [ctypes.c_void_p])
+
+KERNEL = build.Kernel("ssd_chunk", "repro_ssd_chunk_fwd", ARGTYPES)
+
+
+def _check(x, dt, a, b, c, chunk) -> None:
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    if dt.shape != (bs, h, s) or a.shape != (bs, h):
+        raise ValueError(f"dt {tuple(dt.shape)} / a {tuple(a.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if b.shape != c.shape or b.shape[0] != bs or b.shape[2] != s \
+            or g not in (1, h):
+        raise ValueError(f"b {tuple(b.shape)} / c {tuple(c.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"seq {s} must divide chunk {chunk}")
+    if not (x.dtype == b.dtype == c.dtype) or x.dtype not in _DTYPES:
+        raise ValueError(f"x, b, c must share float32 or bfloat16, got "
+                         f"{x.dtype}, {b.dtype}, {c.dtype}")
+    if len({t.device for t in (x, dt, a, b, c)}) != 1:
+        raise ValueError("x, dt, a, b, c must be on one device")
+    if any(t.requires_grad for t in (x, dt, a, b, c)):
+        raise ValueError("ssd_chunk_intra is a forward kernel with no "
+                         "backward: inputs that require grad take the plain "
+                         "path (repro_torch.models.ssm.ssd_chunked)")
+
+
+def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                          b: torch.Tensor, c: torch.Tensor, chunk: int, *,
+                          y: Optional[torch.Tensor] = None,
+                          states: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,H,S,P]; dt: [B,H,S]; a: [B,H]; b, c: [B,G,S,N] with G = H or 1
+    (every head reads the same b, c); any strides with the last dim
+    contiguous, on every device (a stride of 0 broadcasts).  Returns (y
+    [B,H,S,P] in x's dtype, states [B,H,S/chunk,P,N] float32), written into
+    `y` and `states` when given (views of those shapes, last dims
+    contiguous)."""
+    _check(x, dt, a, b, c, chunk)
+    bs, h, s, p = x.shape
+    n = b.shape[-1]
+    shape_y, shape_st = (bs, h, s, p), (bs, h, s // chunk, p, n)
+    for name, out, shape, dtype in (("y", y, shape_y, x.dtype),
+                                    ("states", states, shape_st,
+                                     torch.float32)):
+        if out is not None and (out.shape != shape or out.dtype != dtype
+                                or out.device != x.device):
+            raise ValueError(f"{name} must be {dtype} {shape} on {x.device}, "
+                             f"got {out.dtype} {tuple(out.shape)}")
+    if any(t is not None and t.stride(-1) != 1 for t in (x, b, c, y, states)) \
+            or (states is not None and states.stride(-2) != n):
+        raise ValueError("the last dim of x, b, c, y and the [P, N] block of "
+                         "states must be contiguous")
+    if x.device.type == "cpu":
+        ry, rs = ssd_chunk_intra_heads_reference(x, dt, a, b, c, chunk)
+        if y is None:
+            y = ry
+        else:
+            y.copy_(ry)
+        if states is None:
+            states = rs
+        else:
+            states.copy_(rs)
+        return y, states
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk_intra runs on cuda or cpu, not {x.device}")
+    if p not in DIMS or n not in DIMS:
+        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+    y = torch.empty(shape_y, dtype=x.dtype, device=x.device) if y is None \
+        else y
+    states = torch.empty(shape_st, dtype=torch.float32, device=x.device) \
+        if states is None else states
+    dt, a = dt.float(), a.float()       # [B,H,S] and [B,H]: cheap if copied
+    # a head stride of 0 when every head reads one b, c
+    bsh = b.stride(1) if b.shape[1] == h else 0
+    csh = c.stride(1) if c.shape[1] == h else 0
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        KERNEL.launch(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), states.data_ptr(), _DTYPES[x.dtype],
+            bs, h, s, chunk, p, n, *x.stride()[:3], *dt.stride(),
+            *a.stride(), b.stride(0), bsh, b.stride(2), c.stride(0), csh,
+            c.stride(2), *y.stride()[:3], *states.stride()[:3], stream)
+    return y, states
+
+
+def ssd_chunk_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas kernel's layout: x [BH,S,P], dt [BH,S], a [BH], b, c
+    [BH,S,N].  Returns (y_diag [BH,S,P] in x's dtype, states
+    [BH,S/chunk,P,N] float32)."""
+    if x.dim() != 3 or dt.dim() != 2 or a.dim() != 1 or b.dim() != 3 \
+            or c.dim() != 3:
+        raise ValueError("x, dt, a, b, c must be [BH,S,P], [BH,S], [BH], "
+                         "[BH,S,N], [BH,S,N]")
+    y, states = ssd_chunk_intra_heads(x[:, None], dt[:, None], a[:, None],
+                                      b[:, None], c[:, None], chunk)
+    return y[:, 0], states[:, 0]

@@ -2,11 +2,18 @@
 Counterpart of src/repro/launch/serve.py for --model-parallel 1.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
+        --prompt-len 512
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu
 
-Runs on CUDA unless --device cpu is given; without a card it raises.
-Params are bf16 at full size and fp32 with --reduced.
+Serves the dense family and the ssm (mamba2-780m) and hybrid (zamba2-1.2b)
+families.  Runs on CUDA unless --device cpu is given; without a card it
+raises.  Params are bf16 at full size and fp32 with --reduced.  Prompts
+have random lengths of 4-23 tokens, or --prompt-len each; an ssm or hybrid
+batch whose padded length is a multiple of the config's ssm_chunk (512 for
+mamba2-780m, 256 for zamba2-1.2b, 16 reduced) prefills through the SSD
+kernel, any other through the sequential recurrence.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--new-tokens", type=int, default=12)
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--prompt-len", type=int, default=0,
+                    help="tokens per prompt (default: random, 4-23)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     return ap
@@ -49,7 +58,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                            max_len=args.max_len)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
-        plen = int(rng.integers(4, 24))
+        plen = args.prompt_len or int(rng.integers(4, 24))
         engine.submit(Request(
             uid=i,
             prompt=rng.integers(1, cfg.vocab_size, plen, dtype=np.int32),

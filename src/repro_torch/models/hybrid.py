@@ -1,0 +1,215 @@
+"""Hybrid SSM + shared-attention models (Zamba2 family) and the pure-SSM LM
+(Mamba2 family): the serving path.  Counterpart of
+src/repro/models/hybrid.py.
+
+Zamba2 interleaves Mamba2 layers with a single SHARED transformer block
+(attention + MLP) applied after every `hybrid_attn_every` layers; the shared
+block's parameters are reused at every application, and its KV cache has one
+entry per application site.  Layers past the last whole group form an
+attention-free tail.
+
+The layers are an `nn.ModuleList` run by a Python loop.  Decode state is
+stacked over layers (conv [L,B,W-1,C], ssm [L,B,H,P,N]) and the shared
+block's KV caches over sites ([sites,B,T,Hkv,D]); every call writes them in
+place, so they keep their shapes and dtypes from step to step (the
+reference returns new arrays, with the conv state in the activations'
+dtype; the values are the same).  Training of these families is not ported
+yet (ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from .attention import Attention, MaskSpec, attention_forward, init_attention
+from .common import ModelConfig, dense_init, resolve_device, rms_norm
+from .mlp import MLP, init_mlp, mlp_forward
+from .ssm import Mamba2, SSMState, init_mamba2, init_ssm_state, mamba2_forward
+from .transformer import _Applied, _norm, embed_tokens, lm_logits
+
+Caches = Tuple[torch.Tensor, torch.Tensor]
+CAUSAL = MaskSpec(causal=True)
+
+
+class SSMLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.ln = _norm(cfg.d_model, dtype, device)
+        self.mamba = Mamba2(cfg, dtype, device)
+
+
+class SSMLM(_Applied):
+    """embed [V, d] (also the tied output projection), the Mamba2 layers and
+    final_norm."""
+    lm_head = None                            # the embeddings are tied
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.embed = nn.Parameter(torch.empty(
+            cfg.vocab_size, cfg.d_model, dtype=dtype, device=device))
+        self.layers = nn.ModuleList(
+            SSMLayer(cfg, dtype, device) for _ in range(cfg.num_layers))
+        self.final_norm = _norm(cfg.d_model, dtype, device)
+
+
+class SharedBlock(nn.Module):
+    """Zamba2's one shared attention + MLP block."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+        super().__init__()
+        self.ln_attn = _norm(cfg.d_model, dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ln_mlp = _norm(cfg.d_model, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device, cfg.mlp_variant)
+
+
+class HybridLM(SSMLM):
+    """SSMLM plus the shared block."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
+        super().__init__(cfg, dtype, device)
+        self.shared = SharedBlock(cfg, dtype, device)
+
+
+@torch.no_grad()
+def _init(cls, cfg: ModelConfig, generator: torch.Generator, dtype,
+          device) -> SSMLM:
+    """Random weights on `device` from `generator` (which lives there):
+    built on the meta device first, so no memory is filled twice."""
+    with torch.device("meta"):
+        p = cls(cfg, dtype)
+    p = p.to_empty(device=resolve_device(device))
+    dense_init(p.embed, cfg.d_model, generator, scale=0.02)
+    for layer in p.layers:
+        layer.ln.zero_()
+        init_mamba2(layer.mamba, generator)
+    p.final_norm.zero_()
+    if isinstance(p, HybridLM):
+        init_attention(p.shared.attn, cfg, generator)
+        init_mlp(p.shared.mlp, generator)
+        p.shared.ln_attn.zero_()
+        p.shared.ln_mlp.zero_()
+    return p
+
+
+# ---------------------------------------------------------------------- #
+# pure SSM LM (mamba2)
+# ---------------------------------------------------------------------- #
+
+def init_ssm_lm(cfg: ModelConfig, generator: torch.Generator,
+                dtype=torch.float32, device="cuda") -> SSMLM:
+    return _init(SSMLM, cfg, generator, dtype, device)
+
+
+def _ssm_layer(layer: SSMLayer, cfg: ModelConfig, h: torch.Tensor,
+               states: Optional[SSMState], i: int) -> torch.Tensor:
+    """One residual Mamba2 layer; writes layer i's new state into the
+    stacked `states` in place when given."""
+    st = None if states is None else (states[0][i], states[1][i])
+    out, (conv, ssm) = mamba2_forward(layer.mamba, cfg,
+                                      rms_norm(h, layer.ln, cfg.norm_eps), st)
+    if states is not None:
+        states[0][i].copy_(conv)
+        states[1][i].copy_(ssm)
+    return h + out
+
+
+def ssm_stack(params: SSMLM, cfg: ModelConfig, h: torch.Tensor,
+              states: Optional[SSMState] = None
+              ) -> Tuple[torch.Tensor, Optional[SSMState]]:
+    """states: stacked (conv [L,B,W-1,C], ssm [L,B,H,P,N]) written in place,
+    or None."""
+    for i, layer in enumerate(params.layers):
+        h = _ssm_layer(layer, cfg, h, states, i)
+    return h, states
+
+
+def init_ssm_lm_states(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                       device="cuda") -> SSMState:
+    conv, ssm = init_ssm_state(cfg, batch, dtype, resolve_device(device))
+    return (conv[None].repeat(cfg.num_layers, 1, 1, 1),
+            ssm[None].repeat(cfg.num_layers, 1, 1, 1, 1))
+
+
+def ssm_lm_decode_step(params: SSMLM, cfg: ModelConfig, token: torch.Tensor,
+                       states: SSMState
+                       ) -> Tuple[torch.Tensor, SSMState]:
+    """O(1) decode: no positions, no cache index; the SSM state carries
+    time."""
+    h = embed_tokens(params, cfg, token)
+    h, states = ssm_stack(params, cfg, h, states)
+    return lm_logits(params, cfg, h), states
+
+
+# ---------------------------------------------------------------------- #
+# hybrid LM (zamba2)
+# ---------------------------------------------------------------------- #
+
+def num_shared_sites(cfg: ModelConfig) -> int:
+    return cfg.num_layers // cfg.hybrid_attn_every
+
+
+def init_hybrid_lm(cfg: ModelConfig, generator: torch.Generator,
+                   dtype=torch.float32, device="cuda") -> HybridLM:
+    return _init(HybridLM, cfg, generator, dtype, device)
+
+
+def _shared_block(params: HybridLM, cfg: ModelConfig, h: torch.Tensor,
+                  positions: Optional[torch.Tensor],
+                  cache: Optional[Caches], cache_index: Optional[int]
+                  ) -> torch.Tensor:
+    """positions None: a prompt from position 0, which lets a CUDA call take
+    the flash kernel.  The cache is written in place."""
+    sp = params.shared
+    a_out, _ = attention_forward(
+        sp.attn, cfg, rms_norm(h, sp.ln_attn, cfg.norm_eps), positions,
+        CAUSAL, cache=cache, cache_index=cache_index)
+    h = h + a_out
+    m_in = rms_norm(h, sp.ln_mlp, cfg.norm_eps)
+    return h + mlp_forward(sp.mlp, m_in, cfg.activation)
+
+
+def hybrid_stack(params: HybridLM, cfg: ModelConfig, h: torch.Tensor,
+                 positions: Optional[torch.Tensor],
+                 ssm_states: Optional[SSMState] = None,
+                 kv_caches: Optional[Caches] = None,
+                 cache_index: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Optional[SSMState],
+                            Optional[Caches]]:
+    """Groups of `hybrid_attn_every` Mamba2 layers with the shared block
+    after each group; the L mod every layers left over form an
+    attention-free tail.  ssm_states: stacked over all L layers; kv_caches:
+    (k, v) [sites,B,T,Hkv,D]; both written in place."""
+    every = cfg.hybrid_attn_every
+    for i, layer in enumerate(params.layers):
+        h = _ssm_layer(layer, cfg, h, ssm_states, i)
+        site = i // every
+        if (i + 1) % every == 0 and site < num_shared_sites(cfg):
+            kv = None if kv_caches is None else \
+                (kv_caches[0][site], kv_caches[1][site])
+            h = _shared_block(params, cfg, h, positions, kv, cache_index)
+    return h, ssm_states, kv_caches
+
+
+def init_hybrid_caches(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype=torch.float32, device="cuda"
+                       ) -> Tuple[SSMState, Caches]:
+    device = resolve_device(device)
+    kv_shape = (num_shared_sites(cfg), batch, max_len, cfg.num_kv_heads,
+                cfg.hd)
+    return (init_ssm_lm_states(cfg, batch, dtype, device),
+            (torch.zeros(kv_shape, dtype=dtype, device=device),
+             torch.zeros(kv_shape, dtype=dtype, device=device)))
+
+
+def hybrid_decode_step(params: HybridLM, cfg: ModelConfig,
+                       token: torch.Tensor, ssm_states: SSMState,
+                       kv_caches: Caches, index: int
+                       ) -> Tuple[torch.Tensor, SSMState, Caches]:
+    h = embed_tokens(params, cfg, token)
+    positions = torch.tensor([index], device=token.device)
+    h, ssm_states, kv_caches = hybrid_stack(
+        params, cfg, h, positions, ssm_states, kv_caches, index)
+    return lm_logits(params, cfg, h), ssm_states, kv_caches

@@ -1,12 +1,16 @@
-"""Uniform Model interface; the port trains and serves the dense family.
+"""Uniform Model interface; the port trains and serves the dense family and
+serves the ssm (mamba2) and hybrid (zamba2) families.
 Counterpart of src/repro/models/model_zoo.py.
 
     model = build_model(cfg, remat=True)
-    params = model.init(seed, dtype, device)             # a DecoderLM
-    loss, token_loss = model.loss(params, batch)         # train
+    params = model.init(seed, dtype, device)     # DecoderLM, SSMLM or HybridLM
+    loss, token_loss = model.loss(params, batch)         # train (dense)
     state = model.init_decode_state(batch, max_len, dtype, device)
     state, logits = model.prefill(params, batch, state)
     logits, state = model.decode_step(params, token, state, index)
+
+Decode state is a dict: the KV caches for the dense family, the stacked
+conv and SSM states for ssm, both for hybrid.  The port writes it in place.
 """
 from __future__ import annotations
 
@@ -14,17 +18,16 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
+from torch import nn
 
-from . import transformer
+from . import hybrid, transformer
 from .common import ModelConfig, resolve_device
 
-# families of the reference that wait for later slices (ROADMAP.md queue A)
+# what waits for later slices (ROADMAP.md queue A)
 _NOT_PORTED = {
     "moe": "A4 (MoE)",
     "vlm": "A5 (other model families)",
     "audio": "A5 (other model families)",
-    "hybrid": "A5 (other model families)",
-    "ssm": "A5 (other model families)",
 }
 
 
@@ -34,36 +37,73 @@ class Model:
     remat: bool = False          # per-layer activation recomputation
 
     def init(self, seed: int, dtype=torch.float32, device="cuda"
-             ) -> transformer.DecoderLM:
+             ) -> nn.Module:
         """Random weights from a generator seeded with `seed` on `device`."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        return transformer.init_lm(self.cfg, gen, dtype, device)
+        init = {"dense": transformer.init_lm, "ssm": hybrid.init_ssm_lm,
+                "hybrid": hybrid.init_hybrid_lm}[self.cfg.family]
+        return init(self.cfg, gen, dtype, device)
 
-    def loss(self, params: transformer.DecoderLM,
-             batch: Dict[str, torch.Tensor]
+    def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(total loss, token loss) of a batch with tokens [B, S]."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: training of family {self.cfg.family!r} is "
+                "not ported yet (ROADMAP.md queue A, item A10)")
         return transformer.lm_loss(params, self.cfg, batch, remat=self.remat)
 
     def init_decode_state(self, batch_size: int, max_len: int,
                           dtype=torch.float32, device="cuda"
                           ) -> Dict[str, Any]:
-        return {"kv": transformer.init_kv_caches(
-            self.cfg, batch_size, max_len, dtype, resolve_device(device))}
+        cfg, device = self.cfg, resolve_device(device)
+        if cfg.family == "hybrid":
+            ssm, kv = hybrid.init_hybrid_caches(cfg, batch_size, max_len,
+                                                dtype, device)
+            return {"ssm": ssm, "kv": kv}
+        if cfg.family == "ssm":
+            return {"ssm": hybrid.init_ssm_lm_states(cfg, batch_size, dtype,
+                                                     device)}
+        return {"kv": transformer.init_kv_caches(cfg, batch_size, max_len,
+                                                 dtype, device)}
 
-    def prefill(self, params: transformer.DecoderLM,
-                batch: Dict[str, torch.Tensor], state: Dict[str, Any]
+    def prefill(self, params: nn.Module, batch: Dict[str, torch.Tensor],
+                state: Dict[str, Any]
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
-        kv, logits = transformer.lm_prefill(
-            params, self.cfg, batch["tokens"], state["kv"])
+        """The prompt from position 0; returns (state, last-position
+        logits [B,1,V])."""
+        cfg, tokens = self.cfg, batch["tokens"]
+        if cfg.family == "hybrid":
+            h = transformer.embed_tokens(params, cfg, tokens)
+            # positions None: 0..S-1, which lets the card take the flash
+            # kernel (the reference passes arange(S))
+            h, ssm, kv = hybrid.hybrid_stack(params, cfg, h, None,
+                                             state["ssm"], state["kv"], 0)
+            logits = transformer.lm_logits(params, cfg, h[:, -1:])
+            return {"ssm": ssm, "kv": kv}, logits
+        if cfg.family == "ssm":
+            h = transformer.embed_tokens(params, cfg, tokens)
+            h, ssm = hybrid.ssm_stack(params, cfg, h, state["ssm"])
+            logits = transformer.lm_logits(params, cfg, h[:, -1:])
+            return {"ssm": ssm}, logits
+        kv, logits = transformer.lm_prefill(params, cfg, tokens, state["kv"])
         return {"kv": kv}, logits
 
-    def decode_step(self, params: transformer.DecoderLM,
-                    token: torch.Tensor, state: Dict[str, Any], index: int
+    def decode_step(self, params: nn.Module, token: torch.Tensor,
+                    state: Dict[str, Any], index: int
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        logits, kv = transformer.lm_decode_step(
-            params, self.cfg, token, state["kv"], index)
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            logits, ssm, kv = hybrid.hybrid_decode_step(
+                params, cfg, token, state["ssm"], state["kv"], index)
+            return logits, {"ssm": ssm, "kv": kv}
+        if cfg.family == "ssm":
+            logits, ssm = hybrid.ssm_lm_decode_step(params, cfg, token,
+                                                    state["ssm"])
+            return logits, {"ssm": ssm}
+        logits, kv = transformer.lm_decode_step(params, cfg, token,
+                                                state["kv"], index)
         return logits, {"kv": kv}
 
 
@@ -72,7 +112,7 @@ def build_model(cfg: ModelConfig, remat: bool = False) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: dense configs with experts are not ported yet "
             f"(ROADMAP.md queue A, item {_NOT_PORTED['moe']})")
-    if cfg.family != "dense":
+    if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"(ROADMAP.md queue A, item {_NOT_PORTED[cfg.family]})")

@@ -3,8 +3,11 @@ decode loop.  Counterpart of src/repro/serve/engine.py, same semantics.
 
 Static batching with greedy sampling: requests are grouped into batches of
 `batch_size`, prompts are left-padded with token 0 (the pad is not masked) to
-a common length, prefill fills the KV cache, then one decode step per
-generated token.  A sequence stops at EOS or at its budget.
+a common length, prefill fills the decode state (KV caches, SSM states or
+both, by family), then one decode step per generated token.  A sequence
+stops at EOS or at its budget.  For the ssm and hybrid families the padded
+length decides the path: a multiple of `cfg.ssm_chunk` takes the chunked
+scan (the SSD kernel on the card), any other the sequential recurrence.
 """
 from __future__ import annotations
 
@@ -14,9 +17,9 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.transformer import DecoderLM
 
 
 @dataclasses.dataclass
@@ -35,12 +38,13 @@ class Completion:
 
 
 class ServingEngine:
-    """Runs on the device of `params`.  The KV caches are in `dtype` (fp32 by
-    default, also when the params are bf16).  `stats` sums, over all batches,
+    """Runs on the device of `params` (its `embed`).  The KV caches and conv
+    states are in `dtype` (fp32 by default, also when the params are bf16;
+    SSM states are always fp32).  `stats` sums, over all batches,
     the seconds spent in prefill and in decode (each ends when the sampled
     tokens reach the host) and the token positions each processed."""
 
-    def __init__(self, model: Model, params: DecoderLM, *,
+    def __init__(self, model: Model, params: nn.Module, *,
                  batch_size: int = 4, max_len: int = 512, eos_id: int = -1,
                  dtype=torch.float32):
         self.model = model

@@ -81,8 +81,7 @@ def test_model_config_fields_match_jax(name, reduced):
 
 
 @pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "mixtral-8x7b",
-                                  "paligemma-3b", "whisper-medium",
-                                  "zamba2-1.2b", "mamba2-780m"])
+                                  "paligemma-3b", "whisper-medium"])
 def test_build_model_refuses_families_not_ported(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(reduced_config(name))

@@ -85,6 +85,37 @@ def test_engine_tokens_and_logits_match_jax(name):
                                        atol=LOGIT_ATOL)
 
 
+def ssm_requests(cls, lengths):
+    """Requests of the given prompt lengths, prompts 1, 2, 3, ..."""
+    return [cls(uid=i, prompt=(np.arange(n, dtype=np.int32) % 200) + 1,
+                max_new_tokens=5) for i, n in enumerate(lengths)]
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-1.2b"])
+def test_engine_tokens_match_jax_for_ssm_families(name):
+    """Two batches of 2: prompts of 32 and 20 tokens, padded to 32, a
+    multiple of the reduced chunk (16), so prefill takes the SSD block; then
+    7 and 11, padded to 11, which takes the sequential recurrence.  Greedy
+    tokens equal the JAX engine's."""
+    cfg_j, cfg_t = jax_reduced(name), reduced_config(name)
+    model_j = jax_build(cfg_j)
+    pj = model_j.init(jax.random.PRNGKey(1))
+    pt = from_jax_params(cfg_t, jax.tree.map(np.asarray, pj), device="cpu")
+    lengths = [32, 20, 7, 11]
+    eng_j = JaxEngine(model_j, pj, batch_size=2, max_len=64)
+    eng_t = ServingEngine(build_model(cfg_t), pt, batch_size=2, max_len=64)
+    for r in ssm_requests(JaxRequest, lengths):
+        eng_j.submit(r)
+    for r in ssm_requests(Request, lengths):
+        eng_t.submit(r)
+    outs_j, outs_t = eng_j.run(), eng_t.run()
+    assert [o.uid for o in outs_t] == [o.uid for o in outs_j]
+    for a, b in zip(outs_t, outs_j):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        assert a.prompt_len == b.prompt_len
+    assert eng_t.stats["prefill_tokens"] == 2 * 32 + 2 * 11
+
+
 def test_engine_records_phase_stats():
     cfg = reduced_config("qwen3-8b")
     model = build_model(cfg)
@@ -108,6 +139,25 @@ def test_launch_serve_runs_on_cpu_when_asked(capsys):
              if l.startswith("req ")]
     assert len(lines) == 3
     assert all("-> 4 new tokens" in l for l in lines)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-1.2b"])
+@pytest.mark.parametrize("prompt_len", [0, 32])
+def test_launch_serve_ssm_families_run_on_cpu_when_asked(capsys, name,
+                                                         prompt_len):
+    """Random prompt lengths, and --prompt-len 32: a multiple of the reduced
+    chunk, so every prefill takes the SSD block."""
+    rc = launch_serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                            "--requests", "3", "--new-tokens", "4",
+                            "--prompt-len", str(prompt_len)])
+    assert rc == 0
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("req ")]
+    assert len(lines) == 3
+    assert all("-> 4 new tokens" in l for l in lines)
+    if prompt_len:
+        assert all(l.startswith(f"req {i}: 32 prompt")
+                   for i, l in enumerate(lines))
 
 
 def test_launch_serve_without_cuda_raises(monkeypatch):

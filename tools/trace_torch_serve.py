@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Trace one batch of the PyTorch port's serving path on the card.
 
-    python3 tools/trace_torch_serve.py
+    python3 tools/trace_torch_serve.py [--arch mamba2-780m]
 
-qwen3-8b at full width (bf16, random weights from seed 0), one batch of 2
-prompts of 1000 tokens and 16 new tokens: the first batch of the serve
-phase of chip_smoke.py.  Runs the calls ServingEngine makes for it
-(prefill, then greedy decode steps) once to warm up, then again under
-torch.profiler.  Prints one JSON line per phase: host seconds (inflated by
+One model at full width (qwen3-8b unless --arch names another the port
+serves; bf16, random weights from seed 0), one batch of 2 prompts of 1000
+tokens (for the ssm and hybrid families, 1000 rounded up to a multiple of
+the config's ssm_chunk, so prefill takes the SSD kernel: 1024 for
+mamba2-780m and zamba2-1.2b) and 16 new tokens: the first batch of the
+serve phase of chip_smoke.py for qwen3-8b.  Runs the calls ServingEngine
+makes for it (prefill, then greedy decode steps) once to warm up, then again
+under torch.profiler.  Prints one JSON line per phase: host seconds (inflated by
 the profiler's own cost), device busy seconds (the sum of kernel and copy
 times, which do not overlap on one stream), the idle share, kernel launches,
 host-to-device copies and syncs per step, and the kernels that take the
@@ -15,6 +18,7 @@ most device time.  Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -48,53 +52,59 @@ def _summary(prof, wall_s: float, steps: int) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen3-8b")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_torch_serve: needs a CUDA card", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.models import transformer as tf
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("qwen3-8b")
-    params = build_model(cfg).init(SEED, torch.bfloat16)
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(args.arch)
+    model = build_model(cfg)
+    params = model.init(SEED, torch.bfloat16)
+    plen = PLEN
+    if cfg.family in ("ssm", "hybrid"):
+        plen = -(-PLEN // cfg.ssm_chunk) * cfg.ssm_chunk
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(rng.integers(
-        1, cfg.vocab_size, (BATCH, PLEN))).cuda()
+        1, cfg.vocab_size, (BATCH, plen))).cuda()
     steps = NEW_TOKENS - 1
-    clen = PLEN + NEW_TOKENS + 1
+    clen = plen + NEW_TOKENS + 1
 
     def prefill():
-        caches = tf.init_kv_caches(cfg, BATCH, clen, device="cuda")
-        caches, logits = tf.lm_prefill(params, cfg, tokens, caches)
+        state = model.init_decode_state(BATCH, clen)
+        state, logits = model.prefill(params, {"tokens": tokens}, state)
         tok = logits[:, -1].argmax(-1)[:, None]
         tok.cpu()
-        return caches, tok
+        return state, tok
 
-    def decode(caches, tok):
+    def decode(state, tok):
         for i in range(steps):
-            logits, caches = tf.lm_decode_step(params, cfg, tok, caches,
-                                               PLEN + i)
+            logits, state = model.decode_step(params, tok, state, plen + i)
             tok = logits[:, -1].argmax(-1)[:, None]
             tok.cpu()
 
     print(json.dumps({"phase": "device",
                       "name": torch.cuda.get_device_name(0),
                       "arch": cfg.name, "batch": BATCH,
-                      "plen": PLEN, "new_tokens": NEW_TOKENS}))
+                      "plen": plen, "new_tokens": NEW_TOKENS}))
     with torch.inference_mode():
         decode(*prefill())                         # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            caches, tok = prefill()
+            state, tok = prefill()
             wall = time.perf_counter() - t0
         print(json.dumps({"phase": "prefill", **_summary(prof, wall, 1)}))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            decode(caches, tok)
+            decode(state, tok)
             wall = time.perf_counter() - t0
         print(json.dumps({"phase": "decode", **_summary(prof, wall, steps)}))
     return 0
