@@ -7,11 +7,16 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. device           CUDA required; TF32 off; the card's name and power limit.
 2. build            nvcc builds every kernel from src/repro_torch/kernels/csrc,
-                    one nvcc per source, all started together.
+                    one nvcc per source, all started together; registers and
+                    spills of each bf16 flash instance, and the HGMMA (wgmma)
+                    instructions in the flash library's SASS (`cuobjdump
+                    -sass` beside nvcc): a count of 0 fails the phase.
 3. kernel_vs_plain  the flash kernel against its plain PyTorch version on the
                     card over dtypes, head dims, head groupings, masks and
-                    ragged lengths; times at the serving shape beside the
-                    bound, the plain version and one PyTorch library call.
+                    ragged lengths, including the tensor-core path's tile
+                    edges; times at the serving shape (device time per call
+                    from a CUDA graph, and eager) beside the bound, TFLOP/s,
+                    the plain version and one PyTorch library call.
 4. chunk_accum_vs_plain
                     the chunk_accum kernel, dense and indexed, f32/bf16/f16
                     updates, ragged widths, widths 1-8 with repeated trash
@@ -118,6 +123,7 @@ SSD_MAIN = dict(b=2, s=2048, h=48, p=64, n=128, q=512)
 # zamba2-1.2b prefill: 2 prompts of 1024 tokens, 64 heads of 64, state 64
 SSD_ZAMBA2 = dict(b=2, s=1024, h=64, p=64, n=64, q=256)
 MAIN = dict(b=2, h=32, hkv=8, s=1024, d=128)   # qwen3-8b prefill attention
+GRAPH_CALLS = 10              # flash calls per captured graph (phase 3)
 DEV = "cuda"
 RANKS = 8                     # data-parallel ranks stacked on the card
 TRAIN_ARGV = ["--arch", "gemma2-2b", "--steps", "3", "--global-batch", "4",
@@ -174,6 +180,38 @@ def phase_device() -> str:
     return smi.splitlines()[0]
 
 
+def _ptxas_by_kernel(log: str) -> dict:
+    """kernel (mangled name) -> {"registers": n, "spill": [stores, loads]}
+    from nvcc's -Xptxas -v log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def _hgmma_count(library: str) -> int:
+    """HGMMA (wgmma) instructions in a built library's SASS, from the
+    toolkit's cuobjdump beside nvcc."""
+    from repro_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -188,10 +226,25 @@ def phase_build() -> None:
                   and not l.strip().startswith("0 bytes stack frame, 0 bytes")]
         regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
                                                   log)})
+        extra = {}
+        if name == "flash_attention":
+            # the bf16 path runs on the tensor cores: its SASS holds HGMMA
+            hgmma = _hgmma_count(str(path))
+            assert hgmma > 0, "flash_attention has no HGMMA instruction"
+            instances = {
+                f"D={m.group(1)}": info
+                for kernel, info in _ptxas_by_kernel(log).items()
+                for m in [re.search(r"flash_fwd_bf16ILi(\d+)E", kernel)]
+                if m}
+            # ptxas names the wgmma it had to serialize (a lost overlap)
+            notes = [l.strip() for l in log.splitlines()
+                     if "wgmma" in l.lower()]
+            extra = dict(hgmma=hgmma, bf16_instances=instances,
+                         ptxas_wgmma_notes=notes)
         emit("build", kernel=name,
              source=f"src/repro_torch/kernels/csrc/{name}.cu",
              library=os.path.relpath(path, ROOT), seconds_all=seconds,
-             registers=regs, nonzero_spill_lines=spills)
+             registers=regs, nonzero_spill_lines=spills, **extra)
 
 
 def _qkv(gen, b, h, hkv, sq, skv, d, dtype):
@@ -200,9 +253,9 @@ def _qkv(gen, b, h, hkv, sq, skv, d, dtype):
     return rnd(b, h, sq, d), rnd(b, hkv, skv, d), rnd(b, hkv, skv, d)
 
 
-def phase_kernel_vs_plain(seed: int) -> dict:
-    from repro_torch.kernels import flash_attention, mha_reference
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+def _flash_cases() -> list:
+    """(shape (B, H, Hkv, Sq, Skv, D), mask) of phase 3: dtypes are added by
+    the caller."""
     shapes = [(1, 4, 4, 256, 256, 64),       # MHA
               (2, 8, 2, 1000, 1000, 128),    # GQA, ragged
               (1, 8, 1, 77, 77, 256),        # MQA, ragged, gemma-size head
@@ -214,12 +267,33 @@ def phase_kernel_vs_plain(seed: int) -> dict:
              dict(causal=True, window=64), dict(causal=True, prefix_len=32),
              dict(causal=True, logit_cap=50.0),
              dict(causal=True, window=96, logit_cap=30.0)]
+    cases = [(shape, mask) for shape in shapes for mask in masks]
+    # the tensor-core path's tile edges (q tiles of 64 rows, 128 at D = 256;
+    # kv tiles of 64): lengths 2, 127, 129, 191 on both axes, a window
+    # smaller than a tile, a prefix longer than Sq
+    for sq, skv in [(2, 2), (127, 127), (129, 129), (191, 191), (2, 191),
+                    (191, 2), (127, 129), (129, 127)]:
+        for mask in (dict(causal=True), dict(causal=False),
+                     dict(causal=True, window=8),
+                     dict(causal=True, prefix_len=sq + 5)):
+            cases.append(((1, 4, 2, sq, skv, 128), mask))
+    # head groupings 1, 4 and 8 at the serving head dims
+    for d in (64, 128, 256):
+        for group in (1, 4, 8):
+            for mask in (dict(causal=True), dict(causal=True, window=8)):
+                cases.append(((1, 8, 8 // group, 191, 191, d), mask))
+    return cases
+
+
+def phase_kernel_vs_plain(seed: int) -> dict:
+    from repro_torch.kernels import flash_attention, mha_reference
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     m = MAIN
     main_cases = [((m["b"], m["h"], m["hkv"], s, s, m["d"]), dtype)
                   for s in (1024, 1000)
                   for dtype in (torch.bfloat16, torch.float32)]
-    cases = [(shape, dtype, mask) for shape in shapes
-             for dtype in (torch.float32, torch.bfloat16) for mask in masks]
+    cases = [(shape, dtype, mask) for shape, mask in _flash_cases()
+             for dtype in (torch.float32, torch.bfloat16)]
     cases += [(shape, dtype, dict(causal=True)) for shape, dtype in main_cases]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     main_err = 0.0
@@ -238,15 +312,28 @@ def phase_kernel_vs_plain(seed: int) -> dict:
             failures.append((shape, str(dtype), mask, err))
     assert not failures, f"kernel disagrees with its plain version: {failures}"
 
-    # times at the serving shape: prefill attention of qwen3-8b, S = 1024
+    # times at the serving shape: prefill attention of qwen3-8b, S = 1024.
+    # Device time per call from a CUDA graph of GRAPH_CALLS calls (the
+    # wrapper's host cost drops out), and the eager time, which has it.
     q, k, v = _qkv(gen, m["b"], m["h"], m["hkv"], m["s"], m["s"], m["d"],
                    torch.bfloat16)
+
+    def kernel():
+        for _ in range(GRAPH_CALLS):
+            flash_attention(q, k, v, causal=True)
+
+    def library():
+        for _ in range(GRAPH_CALLS):
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+
     plain_ms = cuda_ms(lambda: mha_reference(q, k, v, causal=True))
-    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True))
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    kernel_ms = (kernel_ms + cuda_ms(
-        lambda: flash_attention(q, k, v, causal=True))) / 2
+    kernel_ms = graph_ms(kernel, GRAPH_CALLS)
+    library_ms = graph_ms(library, GRAPH_CALLS)
+    eager_ms = cuda_ms(kernel, iters=5) / GRAPH_CALLS
+    library_eager_ms = cuda_ms(library, iters=5) / GRAPH_CALLS
+    kernel_ms = (kernel_ms + graph_ms(kernel, GRAPH_CALLS)) / 2
+    library_ms = (library_ms + graph_ms(library, GRAPH_CALLS)) / 2
     plain_ms = (plain_ms + cuda_ms(
         lambda: mha_reference(q, k, v, causal=True))) / 2
     # causal: half the score matrix; two products of 2*D flops per entry
@@ -259,10 +346,15 @@ def phase_kernel_vs_plain(seed: int) -> dict:
                max_abs_err_bf16=worst[torch.bfloat16], tol_f32=TOL[torch.float32],
                tol_bf16=TOL[torch.bfloat16], main_shape=m, main_dtype="bfloat16",
                main_max_abs_err=main_err, kernel_ms=kernel_ms,
-               plain_ms=plain_ms, library_ms=library_ms,
+               kernel_eager_ms=eager_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_eager_ms=library_eager_ms,
                library="torch.nn.functional.scaled_dot_product_attention",
+               timing=f"kernel_ms, library_ms: device time per call, CUDA "
+                      f"graph of {GRAPH_CALLS} calls; *_eager_ms: eager calls",
                bound_ms=bound[bound_by], bound_by=bound_by, flops=flops,
-               bytes=nbytes,
+               bytes=nbytes, tflops=flops / kernel_ms / 1e9,
+               library_tflops=flops / library_ms / 1e9,
+               bound_fraction=bound[bound_by] / kernel_ms,
                fp32_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
     emit("kernel_vs_plain", **res)
     return res

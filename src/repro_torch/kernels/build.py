@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface: `nvcc` compiles it for
 Hopper (`sm_90a`) into `build/<name>-<hash>.so` beside this file, where the
-hash covers the source and the flags, and `ctypes` loads it.  Nothing
-includes PyTorch's headers, so a build takes seconds.  A build runs at a
-kernel's first launch, never at import; `build(name, force=True)` rebuilds.
+hash covers the source, the shared headers `csrc/*.cuh` and the flags, and
+`ctypes` loads it.  Nothing includes PyTorch's headers, so a build takes
+seconds.  A build runs at a kernel's first launch, never at import;
+`build(name, force=True)` rebuilds.
 
 `Kernel` binds one library's C entry point and counts its launches.  Every
 entry point returns the CUDA error of its launch, and every source exports
@@ -39,9 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """build/<name>-<hash>.so, the hash over csrc/<name>.cu, every shared
+    header csrc/*.cuh (a source may include any of them) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str, force: bool = False) -> tuple[Path, str]:

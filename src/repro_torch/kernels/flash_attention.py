@@ -7,9 +7,10 @@ kernel it takes any Sq and Skv: ragged tails are masked inside the kernel.
 
 `flash_attention` on CUDA tensors launches the kernel (building it at first
 use) or raises; on CPU tensors it computes the plain version,
-`ref.mha_reference`.  `KERNEL.launches` counts launches.  There is no
-backward kernel, as the Pallas kernel has none: inputs that require grad
-raise, so no gradient is silently lost.
+`ref.mha_reference`.  bfloat16 runs on the tensor cores (wgmma), float32 on
+the CUDA cores; `launch_args` is the launch plan of both.  `KERNEL.launches`
+counts launches.  There is no backward kernel, as the Pallas kernel has
+none: inputs that require grad raise, so no gradient is silently lost.
 """
 from __future__ import annotations
 
@@ -60,35 +61,58 @@ def _check(q, k, v, window, prefix_len, logit_cap) -> None:
         raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """The bfloat16 kernel's 16-byte loads: an aligned start, and strides
+    that keep every row aligned."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def launch_args(q, k, v, out, *, causal: bool, window: Optional[int],
+                prefix_len: int, logit_cap: Optional[float]) -> tuple:
+    """repro_flash_attention_fwd's arguments but the stream, for checked
+    q, k, v and `out` (q's shape and dtype); raises on what the kernel does
+    not take.  Reads no device memory."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in (q, k, v, out)):
+        raise ValueError("the head dim of q, k, v must be contiguous")
+    if q.numel() == 0 or skv == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if q.dtype == torch.bfloat16 and not all(
+            _rows_aligned(t) for t in (q, k, v, out)):
+        raise ValueError("bfloat16 rows of q, k, v and out must start on "
+                         "16 bytes")
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], b, h, hkv, sq, skv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3],
+            int(causal), window or 0, prefix_len, logit_cap or 0.0)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     prefix_len: int = 0,
                     logit_cap: Optional[float] = None) -> torch.Tensor:
     """q: [B,H,Sq,D]; k, v: [B,Hkv,Skv,D] -> [B,H,Sq,D] in q's dtype.
     The output has q's strides, so a transposed view of a [B,S,H,D] tensor
-    gives an output whose transpose is contiguous."""
+    gives an output whose transpose is contiguous.  A bfloat16 view whose
+    rows do not start on 16 bytes is copied to a dense one first."""
     _check(q, k, v, window, prefix_len, logit_cap)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, window=window,
                              prefix_len=prefix_len, logit_cap=logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the head dim of q, k, v must be contiguous")
-    if q.numel() == 0 or skv == 0:
-        raise ValueError(f"empty attention: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _rows_aligned(t) else
+                   t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     out = torch.empty_like(q)
+    args = launch_args(q, k, v, out, causal=causal, window=window,
+                       prefix_len=prefix_len, logit_cap=logit_cap)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        KERNEL.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, h, hkv, sq, skv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3],
-            int(causal), window or 0, prefix_len, logit_cap or 0.0, stream)
+        KERNEL.launch(*args, torch.cuda.current_stream(q.device).cuda_stream)
     return out

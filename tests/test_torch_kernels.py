@@ -20,8 +20,10 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ref import mha_reference as jax_mha
-from repro_torch.kernels import FLASH_KERNEL, build, flash_attention
-from repro_torch.kernels.flash_attention import ARGTYPES
+from repro_torch.kernels import (FLASH_KERNEL, build, flash_attention,
+                                 mha_reference)
+from repro_torch.kernels.flash_attention import (ARGTYPES, HEAD_DIMS,
+                                                  launch_args)
 from repro_torch.kernels.ops import flash_attention_bshd
 from repro_torch.models.attention import MaskSpec
 
@@ -138,6 +140,62 @@ def test_ctypes_signature_matches_the_c_entry_point():
                         .replace(" *", "*")]
                 for p in params.split(",")]
     assert declared == ARGTYPES
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_plan_takes_every_head_dim(d, dtype):
+    """The launch plan (what a CUDA call hands the C entry point) accepts
+    every head dim the kernel is built for, in both dtypes, through the
+    model's strided [B,S,H,D] views."""
+    _, (tq, tk, tv) = qkv(2, 4, 2, 33, 40, d, dtype)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in (tq, tk, tv))
+    out = torch.empty_like(q)
+    args = launch_args(q, k, v, out, causal=True, window=8, prefix_len=3,
+                       logit_cap=30.0)
+    assert len(args) == len(ARGTYPES) - 1          # all but the stream
+    assert args[4:11] == ({"float32": 0, "bfloat16": 1}[dtype],
+                          2, 4, 2, 33, 40, d)
+    assert args[11:14] == q.stride()[:3] and args[20:23] == out.stride()[:3]
+    assert args[23:] == (1, 8, 3, 30.0)
+
+
+def test_launch_plan_refuses_what_the_kernel_does_not_take():
+    _, (tq, tk, tv) = qkv(1, 4, 2, 16, 16, 48, "bfloat16")
+    with pytest.raises(ValueError, match="head dim 48"):
+        launch_args(tq, tk, tv, torch.empty_like(tq), causal=True,
+                    window=None, prefix_len=0, logit_cap=None)
+    _, (tq, tk, tv) = qkv(1, 4, 2, 16, 16, 72, "bfloat16")
+    q = tq[..., 8:]                  # rows start 16 bytes in: aligned
+    launch_args(q, tk[..., 8:], tv[..., 8:], torch.empty_like(q),
+                causal=True, window=None, prefix_len=0, logit_cap=None)
+    q = tq[..., 1:65]                # bf16 rows 2 bytes off 16
+    with pytest.raises(ValueError, match="16 bytes"):
+        launch_args(q, tk[..., :64], tv[..., :64], torch.empty_like(q),
+                    causal=True, window=None, prefix_len=0, logit_cap=None)
+    # float32 takes any start; the CPU path takes the plain version
+    launch_args(q.float(), tk[..., :64].float(), tv[..., :64].float(),
+                torch.empty_like(q.float()), causal=True, window=None,
+                prefix_len=0, logit_cap=None)
+    check(flash_attention(q, tk[..., :64], tv[..., :64]),
+          mha_reference(q, tk[..., :64], tv[..., :64]), dtype="bfloat16")
+
+
+def test_library_path_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to any csrc/*.cuh names a new library, so it is rebuilt."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    changed = build.library_path("k")
+    assert changed != before
+    (tmp_path / "h.cuh").write_text("// one\n")
+    assert build.library_path("k") == before
+    (tmp_path / "g.cuh").write_text("")
+    assert build.library_path("k") not in (before, changed)
+    assert build.library_path("k").parent == build.BUILD_DIR
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

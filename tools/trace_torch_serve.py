@@ -13,8 +13,9 @@ makes for it (prefill, then greedy decode steps) once to warm up, then again
 under torch.profiler.  Prints one JSON line per phase: host seconds (inflated by
 the profiler's own cost), device busy seconds (the sum of kernel and copy
 times, which do not overlap on one stream), the idle share, kernel launches,
-host-to-device copies and syncs per step, and the kernels that take the
-most device time.  Needs a CUDA card.
+host-to-device copies and syncs per step, the flash kernel's device time
+and share of the busy time, and the kernels that take the most device
+time.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -40,10 +41,14 @@ def _summary(prof, wall_s: float, steps: int) -> dict:
     on_device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                        key=lambda e: e.self_device_time_total, reverse=True)
     busy_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    flash = [e for e in on_device if "flash_fwd" in e.key]
+    flash_s = sum(e.self_device_time_total for e in flash) / 1e6
     host = {e.key: e.count for e in events}
     return dict(
         steps=steps, wall_s=wall_s, device_busy_s=busy_s,
         idle_share=1 - busy_s / wall_s,
+        flash_s=flash_s, flash_launches=sum(e.count for e in flash),
+        flash_share_of_busy=flash_s / busy_s if busy_s else 0.0,
         kernel_launches_per_step=host.get("cudaLaunchKernel", 0) / steps,
         memcpy_per_step=host.get("cudaMemcpyAsync", 0) / steps,
         syncs_per_step=host.get("cudaStreamSynchronize", 0) / steps,
