@@ -7,10 +7,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. device           CUDA required; TF32 off; the card's name and power limit.
 2. build            nvcc builds every kernel from src/repro_torch/kernels/csrc,
-                    one nvcc per source, all started together; registers and
-                    spills of each bf16 flash instance, and the HGMMA (wgmma)
-                    instructions in the flash library's SASS (`cuobjdump
-                    -sass` beside nvcc): a count of 0 fails the phase.
+                    one nvcc per source, all started together; for the two
+                    tensor-core kernels (flash_attention, ssd_chunk):
+                    registers and spills of each bf16 instance, ptxas's
+                    notes on wgmma, and the HGMMA (wgmma) instructions in
+                    the library's SASS (`cuobjdump -sass` beside nvcc): a
+                    count of 0 fails the phase.
 3. kernel_vs_plain  the flash kernel against its plain PyTorch version on the
                     card over dtypes, head dims, head groupings, masks and
                     ragged lengths, including the tensor-core path's tile
@@ -60,13 +62,18 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     the card count, bit-equal to the stacked form; with one
                     card it prints that it did not run.
 13. ssd_vs_plain    the SSD intra-chunk kernel against its plain PyTorch
-                    version on the card, y and states, f32 and bf16, chunks
-                    Q of 16, 64, 256 and 512, head dims P and state dims N
-                    from 16 to 128, in the Pallas layout and in the model's
-                    (transposed views, b and c shared by every head); errors
-                    and times at mamba2-780m's and zamba2-1.2b's prefill
-                    shapes beside the bound and the plain version, rotating
-                    over inputs beyond L2.
+                    version on the card, y and states, f32 (CUDA cores) and
+                    bf16 (tensor cores), chunks Q of 16, 48, 64, 100, 129,
+                    256 and 512 with head dims P and state dims N from 16
+                    to 128, and of 1, 1000 and 4096 rows at a few widths,
+                    in the Pallas layout and in the model's (transposed
+                    views, b and c shared by every head), and bf16 b, c
+                    whose rows are off 16 bytes; the cases bit-equal to the
+                    plain version, per dtype; errors and times at
+                    mamba2-780m's and zamba2-1.2b's prefill shapes (device
+                    time per call from a CUDA graph, and eager) beside the
+                    bound and the plain version, rotating over inputs
+                    beyond L2.
 14. ssm_model_vs_cpu
                     reduced mamba2-780m and zamba2-1.2b, the same weights on
                     the card (kernel path) and on the CPU (plain path):
@@ -212,6 +219,13 @@ def _hgmma_count(library: str) -> int:
     return sum("HGMMA" in line for line in sass.splitlines())
 
 
+# the tensor-core kernels: library -> mangled name of a bf16 instance, and
+# how its template arguments read
+WGMMA_INSTANCES = {
+    "flash_attention": (r"flash_fwd_bf16ILi(\d+)E", "D={}"),
+    "ssd_chunk": (r"ssd_chunk_bf16ILi(\d+)ELi(\d+)E", "P={},N={}")}
+
+
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -227,15 +241,15 @@ def phase_build() -> None:
         regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers",
                                                   log)})
         extra = {}
-        if name == "flash_attention":
+        if name in WGMMA_INSTANCES:
             # the bf16 path runs on the tensor cores: its SASS holds HGMMA
             hgmma = _hgmma_count(str(path))
-            assert hgmma > 0, "flash_attention has no HGMMA instruction"
+            assert hgmma > 0, f"{name} has no HGMMA instruction"
+            pattern, label = WGMMA_INSTANCES[name]
             instances = {
-                f"D={m.group(1)}": info
+                label.format(*m.groups()): info
                 for kernel, info in _ptxas_by_kernel(log).items()
-                for m in [re.search(r"flash_fwd_bf16ILi(\d+)E", kernel)]
-                if m}
+                for m in [re.search(pattern, kernel)] if m}
             # ptxas names the wgmma it had to serialize (a lost overlap)
             notes = [l.strip() for l in log.splitlines()
                      if "wgmma" in l.lower()]
@@ -824,36 +838,59 @@ def phase_ssd_vs_plain(seed: int) -> dict:
     from repro_torch.kernels import ssd_chunk_intra, ssd_chunk_intra_bshp
     gen = torch.Generator(device=DEV).manual_seed(seed)
     pns = [(16, 16), (32, 64), (64, 128), (128, 32), (64, 64), (128, 128)]
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    cases, equal, failures = 0, 0, []
-    for dtype in (torch.float32, torch.bfloat16):
-        for q in (16, 64, 256, 512):
-            for p, n in pns:
-                x, dt, a, b, c = _ssd_inputs(gen, 2, 2 * q, 3, p, n, dtype)
-                ref = ssd_chunk_intra_bshp(x, dt, a, b, c, q, plain=True)
-                # the model's layout: transposed views, shared b and c
-                got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
-                torch.cuda.synchronize()
-                # the Pallas layout, on flat copies
-                bs, s, h = x.shape[:3]
-                y, st = ssd_chunk_intra(
-                    x.transpose(1, 2).reshape(bs * h, s, p),
-                    dt.transpose(1, 2).reshape(bs * h, s), a.repeat(bs),
-                    b.repeat_interleave(h, 0), c.repeat_interleave(h, 0), q)
-                torch.cuda.synchronize()
-                got_flat = (y.view(bs, h, s, p).transpose(1, 2),
-                            st.view(bs, h, s // q, p, n).transpose(1, 2))
-                for label, g in (("bshp", got), ("flat", got_flat)):
-                    err, ok, same = _ssd_err(g, ref, dtype)
-                    cases += 1
-                    equal += same
-                    worst[dtype] = max(worst[dtype], err)
-                    if not ok:
-                        failures.append((label, str(dtype), q, p, n, err))
+    dtypes = (torch.float32, torch.bfloat16)
+    worst = {dtype: 0.0 for dtype in dtypes}
+    cases = {str(dtype)[6:]: 0 for dtype in dtypes}     # "float32": ...
+    equal = dict(cases)
+    failures = []
+
+    def check(label, got, ref, dtype, q, p, n):
+        err, ok, same = _ssd_err(got, ref, dtype)
+        cases[str(dtype)[6:]] += 1
+        equal[str(dtype)[6:]] += same
+        worst[dtype] = max(worst[dtype], err)
+        if not ok:
+            failures.append((label, str(dtype), q, p, n, err))
+
+    # chunks of whole tiles (64 rows) and ragged ones (48, 100, 129), every
+    # (P, N); the entry point's extremes (1 row, 4096 rows) and a long
+    # ragged chunk at the serving widths
+    shapes = [(q, p, n) for q in (16, 48, 64, 100, 129, 256, 512)
+              for p, n in pns]
+    shapes += [(1, 16, 16), (1000, 64, 128), (4096, 64, 128), (4096, 128, 32)]
+    for dtype in dtypes:
+        for q, p, n in shapes:
+            x, dt, a, b, c = _ssd_inputs(gen, 2, 2 * q, 3, p, n, dtype)
+            ref = ssd_chunk_intra_bshp(x, dt, a, b, c, q, plain=True)
+            # the model's layout: transposed views, shared b and c
+            got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
+            torch.cuda.synchronize()
+            check("bshp", got, ref, dtype, q, p, n)
+            # the Pallas layout, on flat copies
+            bs, s, h = x.shape[:3]
+            y, st = ssd_chunk_intra(
+                x.transpose(1, 2).reshape(bs * h, s, p),
+                dt.transpose(1, 2).reshape(bs * h, s), a.repeat(bs),
+                b.repeat_interleave(h, 0), c.repeat_interleave(h, 0), q)
+            torch.cuda.synchronize()
+            check("flat", (y.view(bs, h, s, p).transpose(1, 2),
+                           st.view(bs, h, s // q, p, n).transpose(1, 2)),
+                  ref, dtype, q, p, n)
+    # b and c as slices of one [B, S, 1 + 2N] tensor, rows 2 bytes off 16:
+    # the wrapper copies them to dense ones for the bf16 loads
+    for q, p, n in ((64, 64, 128), (129, 32, 64)):
+        x, dt, a, b, c = _ssd_inputs(gen, 2, 2 * q, 3, p, n, torch.bfloat16)
+        bc = torch.cat([b[..., :1], b, c], dim=-1)
+        b, c = bc[..., 1:1 + n], bc[..., 1 + n:]
+        ref = ssd_chunk_intra_bshp(x, dt, a, b, c, q, plain=True)
+        got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
+        torch.cuda.synchronize()
+        check("unaligned_bc", got, ref, torch.bfloat16, q, p, n)
     assert not failures, f"SSD kernel disagrees with its plain version: " \
         f"{failures}"
 
-    res = dict(cases=cases, bit_equal_cases=equal,
+    res = dict(cases=sum(cases.values()), cases_per_dtype=cases,
+               bit_equal_cases=equal,
                max_abs_err_f32=worst[torch.float32],
                max_abs_err_bf16=worst[torch.bfloat16],
                tol_f32=SSD_TOL, tol_bf16_y=SSD_TOL_BF16_Y)
@@ -870,7 +907,9 @@ def phase_ssd_vs_plain(seed: int) -> dict:
 def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
     """Error against the plain version, times, and bound of the SSD block at
     one serving shape, bf16, as the model calls it, rotating over `sets`
-    inputs (tens of MB moved per call, beyond L2 in all)."""
+    inputs (tens of MB moved per call, beyond L2 in all).  kernel_ms is
+    device time per call from a CUDA graph of the `sets` calls (the
+    wrapper's host cost drops out); kernel_eager_ms has it."""
     from repro_torch.kernels import ssd_chunk_intra_bshp
     inputs = [_ssd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
                           torch.bfloat16) for _ in range(sets)]
@@ -888,8 +927,9 @@ def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
             ssd_chunk_intra_bshp(*args, m["q"], plain=True)
 
     plain_ms = cuda_ms(plain, iters=3, warmup=1) / sets
-    kernel_ms = cuda_ms(kernel, iters=10) / sets
-    kernel_ms = (kernel_ms + cuda_ms(kernel, iters=10) / sets) / 2
+    kernel_ms = graph_ms(kernel, sets)
+    eager_ms = cuda_ms(kernel, iters=10) / sets
+    kernel_ms = (kernel_ms + graph_ms(kernel, sets)) / 2
     plain_ms = (plain_ms + cuda_ms(plain, iters=3, warmup=1) / sets) / 2
     bh, chunks, q = m["b"] * m["h"], m["s"] // m["q"], m["q"]
     # both Q x Q products over the causal pairs i >= j, and the state
@@ -903,9 +943,15 @@ def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
              "bytes": nbytes / PEAK_BYTES * 1e3}
     bound_by = max(bound, key=bound.get)
     return dict(main_shape=m, main_dtype="bfloat16", main_max_abs_err=err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                kernel_ms=kernel_ms, kernel_eager_ms=eager_ms,
+                plain_ms=plain_ms,
+                timing=f"kernel_ms: device time per call, CUDA graph of "
+                       f"{sets} calls on {sets} input sets; kernel_eager_ms, "
+                       f"plain_ms: eager calls",
                 bound_ms=bound[bound_by], bound_by=bound_by, flops=flops,
-                bytes=nbytes, fp32_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+                bytes=nbytes, tflops=flops / kernel_ms / 1e9,
+                bound_fraction=bound[bound_by] / kernel_ms,
+                fp32_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
                 timed_sets=sets)
 
 

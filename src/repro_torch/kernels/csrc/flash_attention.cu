@@ -126,51 +126,17 @@ struct Tiles {
   static constexpr int THREADS = 128 * WGS;
   static constexpr int ROWS = 64 * WGS;         // q rows per block
   static constexpr int BK = 64;                 // kv rows per tile
-  static constexpr int CB = D < 64 ? D : 64;    // elements per column block
-  static constexpr int W = 2 * CB;              // bytes per block row
+  static constexpr int CB = hopper::TileShape<D>::CB;  // column block
+  static constexpr int W = hopper::TileShape<D>::W;    // bytes per its row
   static constexpr int Q_BYTES = ROWS * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
   // Q, one stage of K, two of V; 1024 bytes to align the start
   static constexpr int SMEM = 1024 + Q_BYTES + 3 * KV_BYTES;
 };
 
-// This thread's share of a tile load: 16-byte chunk `chunk` of rows
-// `row`, row + STEP, ...; `soff` is the first one's swizzled offset.
+// This thread's share of a tile load (csrc/hopper.cuh).
 template <int D>
-struct Loader {
-  static constexpr int CHUNKS = D / 8;            // 16-byte chunks per row
-  static constexpr int STEP = Tiles<D>::THREADS / CHUNKS;  // rows apart
-  int row, chunk;
-  uint32_t soff;
-
-  template <int ROWS>
-  __device__ __forceinline__ static uint32_t offset(int r, int c) {
-    using L = Tiles<D>;
-    constexpr int PER_BLOCK = L::CB / 8;
-    return (c / PER_BLOCK) * (ROWS * L::W) +
-           hopper::swizzle<L::W>(r * L::W + (c % PER_BLOCK) * 16);
-  }
-
-  // Rows [row0, row0 + ROWS) of a [S, D] slice (row stride `stride`) into
-  // the swizzled tile at `dst`, rows at or past `limit` zero-filled.  Every
-  // ROWS used has the same `soff` (STEP rows cover whole swizzle atoms).
-  template <int ROWS>
-  __device__ __forceinline__ void load(uint32_t dst, const T* src,
-                                       int64_t stride, int row0,
-                                       int limit) const {
-    static_assert(ROWS % STEP == 0 && STEP * Tiles<D>::W % 1024 == 0,
-                  "tile load split");
-    const T* g = src + (int64_t)(row0 + row) * stride + chunk * 8;
-    const int64_t step = (int64_t)STEP * stride;
-#pragma unroll
-    for (int i = 0; i < ROWS / STEP; ++i) {
-      const bool in = row0 + row + i * STEP < limit;
-      hopper::cp_async_16(dst + soff + i * STEP * Tiles<D>::W,
-                          in ? g : src, in ? 16 : 0);
-      g += step;
-    }
-  }
-};
+using Loader = hopper::TileLoader<D, Tiles<D>::THREADS>;
 
 // S = Q K^T for one warpgroup: q = its 64 rows of the Q tile, k = a K tile.
 template <int D>
@@ -346,20 +312,14 @@ flash_fwd_bf16(const Params p) {
   const int r0 = w_lo + 16 * warp + lane / 4;
   const uint32_t s_qw = s_q + wg * 64 * L::W;
 
-  Loader<D> ld;
-  ld.row = tid / Loader<D>::CHUNKS;
-  ld.chunk = tid % Loader<D>::CHUNKS;
-  ld.soff = Loader<D>::template offset<BK>(ld.row, ld.chunk);
-  // Q's tile has ROWS rows: its column blocks lie further apart
-  Loader<D> lq = ld;
-  lq.soff = Loader<D>::template offset<L::ROWS>(ld.row, ld.chunk);
+  const Loader<D> ld(tid);
 
   // Software pipeline: iteration t issues S[t] = Q K[t]^T and
   // O += P[t-1] V[t-1] together, then takes the softmax of S[t].  V[t] is
   // loaded from the top of iteration t, into the stage V[t-2] left; K[t+1]
   // as soon as every warp's S[t] is done, into K's one stage, and lands
   // during the softmax.
-  lq.template load<L::ROWS>(s_q, qp, p.q_ss, q0, p.sq);
+  ld.template load<L::ROWS>(s_q, qp, p.q_ss, q0, p.sq);
   ld.template load<BK>(s_k, kp, p.k_ss, t_begin * BK, p.skv);
   hopper::cp_async_commit();
 

@@ -93,6 +93,57 @@ __device__ __forceinline__ uint32_t swizzle(uint32_t off) {
   return off ^ ((off >> 3) & ((W / 16 - 1) << 4));
 }
 
+// A [ROWS, D] bf16 tile in the layout above: column blocks of CB elements,
+// W bytes per row of a block.
+template <int D>
+struct TileShape {
+  static constexpr int CB = D < 64 ? D : 64;
+  static constexpr int W = 2 * CB;
+};
+
+// One thread's share of loading such a tile with THREADS threads: 16-byte
+// chunk `chunk` of rows `row`, row + STEP, ...; `soff` is the first one's
+// swizzled offset in a tile of 64 rows (STEP rows cover whole swizzle
+// atoms, so only the distance between column blocks depends on ROWS).
+template <int D, int THREADS>
+struct TileLoader {
+  static constexpr int CHUNKS = D / 8;            // 16-byte chunks per row
+  static constexpr int STEP = THREADS / CHUNKS;   // rows apart
+  static constexpr int CB = TileShape<D>::CB, W = TileShape<D>::W;
+  int row, chunk;
+  uint32_t soff;
+
+  // byte offset of chunk c of row r in a tile of ROWS rows
+  template <int ROWS>
+  __device__ __forceinline__ static uint32_t offset(int r, int c) {
+    return (c / (CB / 8)) * (ROWS * W) +
+           swizzle<W>(r * W + (c % (CB / 8)) * 16);
+  }
+
+  __device__ __forceinline__ explicit TileLoader(int tid)
+      : row(tid / CHUNKS), chunk(tid % CHUNKS),
+        soff(offset<64>(tid / CHUNKS, tid % CHUNKS)) {}
+
+  // Rows [row0, row0 + ROWS) of a [S, D] slice (row stride `stride`) into
+  // the tile at `dst`, rows at or past `limit` zero-filled (not read).
+  template <int ROWS>
+  __device__ __forceinline__ void load(uint32_t dst, const __nv_bfloat16* src,
+                                       int64_t stride, int row0,
+                                       int limit) const {
+    static_assert(ROWS % STEP == 0 && STEP * W % 1024 == 0,
+                  "tile load split");
+    const __nv_bfloat16* g = src + (int64_t)(row0 + row) * stride + chunk * 8;
+    const int64_t step = (int64_t)STEP * stride;
+    dst += soff + (chunk / (CB / 8)) * ((ROWS - 64) * W);
+#pragma unroll
+    for (int i = 0; i < ROWS / STEP; ++i) {
+      const bool in = row0 + row + i * STEP < limit;
+      cp_async_16(dst + i * STEP * W, in ? g : src, in ? 16 : 0);
+      g += step;
+    }
+  }
+};
+
 // wgmma shared-memory descriptor: start address, leading and stride byte
 // offsets (16-byte units, 14 bits each), swizzle mode (1 = 128 B, 2 = 64 B,
 // 3 = 32 B) in bits 62-63; base offset 0 (tiles are 1024-byte aligned).

@@ -14,10 +14,12 @@ Two entry points share it:
 
 On CUDA tensors each launches the kernel (building it at first use) or
 raises; on CPU tensors each computes its plain version in `ref.py`.
-`KERNEL.launches` counts launches.  There is no backward kernel, as the
-Pallas kernel has none: inputs that require grad raise, so no gradient is
-silently lost; the model's `ssd_chunked` takes the plain version under
-autograd on every device instead, as `attend` does for attention.
+bfloat16 runs on the tensor cores (wgmma), float32 on the CUDA cores;
+`launch_args` is the launch plan of both.  `KERNEL.launches` counts
+launches.  There is no backward kernel, as the Pallas kernel has none:
+inputs that require grad raise, so no gradient is silently lost; the
+model's `ssd_chunked` takes the plain version under autograd on every
+device instead, as `attend` does for attention.
 """
 from __future__ import annotations
 
@@ -32,11 +34,12 @@ from .ref import ssd_chunk_intra_heads_reference
 DIMS = (16, 32, 64, 128)        # head dims P and state dims N it takes
 MAX_CHUNK = 4096
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# repro_ssd_chunk_fwd's C parameters: x, dt, a, b, c, y, states; dtype,
-# batch, heads, seqlen, chunk, p, n; the strides of x, dt (b, h, s), a (b,
-# h), b, c, y (b, h, s), states (b, h, chunk); stream
-ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 20
+# repro_ssd_chunk_fwd's C parameters: x, dt, a, b, c, y, states, work;
+# dtype, batch, heads, seqlen, chunk, p, n; the strides of x, dt (b, h, s),
+# a (b, h), b, c, y (b, h, s), states (b, h, chunk); stream
+ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 20
             + [ctypes.c_void_p])
+TILE = 64                       # the kernel's rows per tile
 
 KERNEL = build.Kernel("ssd_chunk", "repro_ssd_chunk_fwd", ARGTYPES)
 
@@ -64,6 +67,68 @@ def _check(x, dt, a, b, c, chunk) -> None:
                          "path (repro_torch.models.ssm.ssd_chunked)")
 
 
+def _head_strides(t: torch.Tensor, h: int) -> tuple:
+    """(batch, head, seq) strides of b or c [B,G,S,N] as the kernel reads
+    them: a head stride of 0 when every head reads one b, c (G = 1)."""
+    return t.stride(0), t.stride(1) if t.shape[1] == h else 0, t.stride(2)
+
+
+def _rows_aligned(t: torch.Tensor, strides: tuple) -> bool:
+    """The bfloat16 kernel's 16-byte loads: an aligned start, and strides
+    that keep every row aligned."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in strides)
+
+
+def dense_if_unaligned(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x, b, c of `ssd_chunk_intra_heads`, each copied to a dense tensor
+    where its rows do not start on 16 bytes (what the bfloat16 kernel's
+    loads need), else as given."""
+    h = x.shape[1]
+    return (x if _rows_aligned(x, x.stride()[:3]) else x.contiguous(),
+            *(t if _rows_aligned(t, _head_strides(t, h)) else t.contiguous()
+              for t in (b, c)))
+
+
+def work_bytes(x: torch.Tensor, chunk: int) -> int:
+    """Bytes of the bfloat16 kernel's work buffer for x [B,H,S,P]: cum
+    (float64) and dt (float32) of every chunk, padded to whole tiles."""
+    bs, h, s, _ = x.shape
+    return 12 * -(-chunk // TILE) * TILE * bs * h * (s // chunk)
+
+
+def launch_args(x, dt, a, b, c, y, states, work, chunk: int) -> tuple:
+    """repro_ssd_chunk_fwd's arguments but the stream, for checked x, dt
+    (float32), a (float32), b, c in `ssd_chunk_intra_heads`' layout, the
+    outputs y and states, and `work` (uint8, `work_bytes`; None for
+    float32); raises on what the kernel does not take.  Reads no device
+    memory."""
+    bs, h, s, p = x.shape
+    n = b.shape[-1]
+    if p not in DIMS or n not in DIMS:
+        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError("dt and a must be float32")
+    bst, cst = _head_strides(b, h), _head_strides(c, h)
+    if x.dtype == torch.bfloat16 and not all(
+            _rows_aligned(t, st) for t, st in
+            ((x, x.stride()[:3]), (b, bst), (c, cst), (y, y.stride()[:3]))):
+        raise ValueError("bfloat16 rows of x, b, c and y must start on "
+                         "16 bytes")
+    if x.dtype == torch.bfloat16 and (
+            work is None or work.numel() * work.element_size()
+            < work_bytes(x, chunk) or work.data_ptr() % 16):
+        raise ValueError(f"bfloat16 needs a 16-byte aligned work buffer of "
+                         f"{work_bytes(x, chunk)} bytes")
+    return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), states.data_ptr(),
+            None if work is None else work.data_ptr(), _DTYPES[x.dtype],
+            bs, h, s, chunk, p, n, *x.stride()[:3], *dt.stride(),
+            *a.stride(), *bst, *cst, *y.stride()[:3], *states.stride()[:3])
+
+
 def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                           b: torch.Tensor, c: torch.Tensor, chunk: int, *,
                           y: Optional[torch.Tensor] = None,
@@ -74,7 +139,9 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     contiguous, on every device (a stride of 0 broadcasts).  Returns (y
     [B,H,S,P] in x's dtype, states [B,H,S/chunk,P,N] float32), written into
     `y` and `states` when given (views of those shapes, last dims
-    contiguous)."""
+    contiguous).  On the card, a bfloat16 x, b or c whose rows do not start
+    on 16 bytes is copied to a dense tensor first, and such a `y` is
+    written through one."""
     _check(x, dt, a, b, c, chunk)
     bs, h, s, p = x.shape
     n = b.shape[-1]
@@ -103,26 +170,24 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return y, states
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_intra runs on cuda or cpu, not {x.device}")
-    if p not in DIMS or n not in DIMS:
-        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+    out_y = y
+    if x.dtype == torch.bfloat16:
+        x, b, c = dense_if_unaligned(x, b, c)
+        if y is not None and not _rows_aligned(y, y.stride()[:3]):
+            y = None                    # written through a dense one
     y = torch.empty(shape_y, dtype=x.dtype, device=x.device) if y is None \
         else y
     states = torch.empty(shape_st, dtype=torch.float32, device=x.device) \
         if states is None else states
     dt, a = dt.float(), a.float()       # [B,H,S] and [B,H]: cheap if copied
-    # a head stride of 0 when every head reads one b, c
-    bsh = b.stride(1) if b.shape[1] == h else 0
-    csh = c.stride(1) if c.shape[1] == h else 0
+    work = torch.empty(work_bytes(x, chunk), dtype=torch.uint8,
+                       device=x.device) if x.dtype == torch.bfloat16 else None
+    args = launch_args(x, dt, a, b, c, y, states, work, chunk)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        KERNEL.launch(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), states.data_ptr(), _DTYPES[x.dtype],
-            bs, h, s, chunk, p, n, *x.stride()[:3], *dt.stride(),
-            *a.stride(), b.stride(0), bsh, b.stride(2), c.stride(0), csh,
-            c.stride(2), *y.stride()[:3], *states.stride()[:3], stream)
+        KERNEL.launch(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if out_y is not None and out_y is not y:
+        out_y.copy_(y)
+        y = out_y
     return y, states
 
 

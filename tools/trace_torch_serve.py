@@ -9,13 +9,16 @@ tokens (for the ssm and hybrid families, 1000 rounded up to a multiple of
 the config's ssm_chunk, so prefill takes the SSD kernel: 1024 for
 mamba2-780m and zamba2-1.2b) and 16 new tokens: the first batch of the
 serve phase of chip_smoke.py for qwen3-8b.  Runs the calls ServingEngine
-makes for it (prefill, then greedy decode steps) once to warm up, then again
-under torch.profiler.  Prints one JSON line per phase: host seconds (inflated by
+makes for it (prefill, then greedy decode steps) once to warm up, times
+REPEAT untraced prefills on the host clock (each ending in the sampled
+token's copy to the host), then runs prefill and decode again under
+torch.profiler.  Prints one JSON line per phase: host seconds (inflated by
 the profiler's own cost), device busy seconds (the sum of kernel and copy
 times, which do not overlap on one stream), the idle share, kernel launches,
-host-to-device copies and syncs per step, the flash kernel's device time
-and share of the busy time, and the kernels that take the most device
-time.  Needs a CUDA card.
+host-to-device copies and syncs per step, the device time, launches and
+share of the busy time of each hand-written kernel (flash attention; the
+SSD intra-chunk kernel with its cum pre-pass), and the kernels that take
+the most device time.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -33,7 +36,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
-SEED, BATCH, PLEN, NEW_TOKENS = 0, 2, 1000, 16
+SEED, BATCH, PLEN, NEW_TOKENS, REPEAT = 0, 2, 1000, 16, 10
+# the port's kernels, by a fragment of their device functions' names; the
+# SSD kernel's cum pre-pass (ssd_chunk_cum) counts in its time, not in its
+# launches
+KERNELS = {"flash": "flash_fwd", "ssd": "ssd_chunk"}
+PRE_PASS = "ssd_chunk_cum"
 
 
 def _summary(prof, wall_s: float, steps: int) -> dict:
@@ -41,14 +49,19 @@ def _summary(prof, wall_s: float, steps: int) -> dict:
     on_device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                        key=lambda e: e.self_device_time_total, reverse=True)
     busy_s = sum(e.self_device_time_total for e in on_device) / 1e6
-    flash = [e for e in on_device if "flash_fwd" in e.key]
-    flash_s = sum(e.self_device_time_total for e in flash) / 1e6
+    mine = {}
+    for name, frag in KERNELS.items():
+        found = [e for e in on_device if frag in e.key]
+        secs = sum(e.self_device_time_total for e in found) / 1e6
+        mine.update({
+            f"{name}_s": secs,
+            f"{name}_launches": sum(e.count for e in found
+                                    if PRE_PASS not in e.key),
+            f"{name}_share_of_busy": secs / busy_s if busy_s else 0.0})
     host = {e.key: e.count for e in events}
     return dict(
         steps=steps, wall_s=wall_s, device_busy_s=busy_s,
-        idle_share=1 - busy_s / wall_s,
-        flash_s=flash_s, flash_launches=sum(e.count for e in flash),
-        flash_share_of_busy=flash_s / busy_s if busy_s else 0.0,
+        idle_share=1 - busy_s / wall_s, **mine,
         kernel_launches_per_step=host.get("cudaLaunchKernel", 0) / steps,
         memcpy_per_step=host.get("cudaMemcpyAsync", 0) / steps,
         syncs_per_step=host.get("cudaStreamSynchronize", 0) / steps,
@@ -100,6 +113,15 @@ def main() -> int:
     with torch.inference_mode():
         decode(*prefill())                         # warm-up
         torch.cuda.synchronize()
+        walls = []
+        for _ in range(REPEAT):
+            t0 = time.perf_counter()
+            prefill()
+            walls.append(time.perf_counter() - t0)
+        med = float(np.median(walls))
+        print(json.dumps({"phase": "prefill_untraced", "wall_s": walls,
+                          "median_s": med,
+                          "positions_per_s": BATCH * plen / med}))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
