@@ -50,14 +50,17 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     (bf16 compute, fp32 masters and AdamW) for 3 steps of
                     4 x 512 tokens on the card: finite losses, step time,
                     tokens/s, peak memory; attention under autograd takes
-                    the plain path, so the flash kernel is not launched.
+                    the plain path, so the flash kernel is not launched; the
+                    supervisor's final checkpoint goes to a temporary
+                    directory, deleted after the phase.
 10. train_vs_cpu    reduced qwen3-8b and gemma2-2b, 2 train steps from the same
                     weights on the card and on the CPU: losses and params
                     agree.
 11. train_entry_point
                     `python -m repro_torch.launch.train --arch qwen3-8b
                     --reduced --steps 2 --collectives pipeline` with no
-                    --device flag exits 0.
+                    --device flag exits 0 and ends with its `done at step 2;
+                    stragglers: S; link faults repaired: False` line.
 12. nccl_p2p        with two or more cards: the P2P form under NCCL at world =
                     the card count, bit-equal to the stacked form; with one
                     card it prints that it did not run.
@@ -69,7 +72,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     in the Pallas layout and in the model's (transposed
                     views, b and c shared by every head), and bf16 b, c
                     whose rows are off 16 bytes; the cases bit-equal to the
-                    plain version, per dtype; errors and times at
+                    plain version, per dtype: every fp32 case must be,
+                    except a chunk of one row, whose fp32 y must then equal
+                    the kernel's documented order of adds (ssd_chunk.cu's
+                    top comment), and each fp32 case that is not is printed
+                    (`fp32_not_bit_equal`); errors and times at
                     mamba2-780m's and zamba2-1.2b's prefill shapes (device
                     time per call from a CUDA graph, and eager) beside the
                     bound and the plain version, rotating over inputs
@@ -89,9 +96,45 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     per batch, the flash kernel once per zamba2 site.
 16. ssm_entry_point `python -m repro_torch.launch.serve --arch mamba2-780m
                     --reduced --prompt-len 32` with no --device flag exits 0.
+17. train_long      training's state at full width: `repro_torch.launch.train
+                    --arch gemma2-2b --seq 4096 --global-batch 1 --steps 3
+                    --ckpt-every 3` through `run()`: finite losses, step
+                    time, tokens/s, peak memory, the blockwise attention
+                    path in every layer of every forward and recomputation
+                    (2 x 26 calls a step); the free disk space before the
+                    checkpoint is written, its bytes and the seconds of its
+                    save (device to host, write), wait and restore; restored
+                    into a fresh state on the host, every leaf equal to the
+                    live state; the directory is deleted.
+18. train_long_vs_cpu
+                    reduced gemma2-2b and qwen3-8b, 2 train steps of 2304
+                    rows from the same weights on the card and on the CPU,
+                    both through the blockwise path: losses and params
+                    agree (TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL).
+19. supervisor_restore
+                    reduced qwen3-8b on the card under TrainSupervisor, a
+                    checkpoint every 3 steps and a step_fn that raises once
+                    after step 4: the replayed steps 3-5 match the first
+                    pass's steps 3 and 4 and an unbroken run's within
+                    RESTORE_RTOL.
+20. schedule_cache  for dgx:8 and data-ring8, the `repro.allreduce` artifact
+                    compiled cold into a fresh cache, then loaded by a new
+                    `Collectives(cache=...)`: compile and hit seconds, the
+                    reloaded payload byte-identical, and one 64 MiB bucket
+                    of 8 stacked ranks reduced through the reloaded program
+                    torch.equal to the cold one (chunk_accum launched).
+21. repair_stacked  the paper's online repair on the card: a
+                    CollectiveContext over data-ring8 with stacked ranks
+                    reduces one 64 MiB bucket, `hot_swap("@fail(0-1)")`,
+                    rebuilds the hook and reduces again: torch.equal to a
+                    context built cold on the degraded ring, within
+                    STACK_ATOL of stack.sum(0); each RepairReport's wall
+                    time and warm flags, and the repaired program's
+                    chunk_accum launches.
 
-Then the card's line from nvidia-smi, a `kernels` JSON line, and as the last
-line {"ok": true, "device": {...}}.
+Then the card's line from nvidia-smi, a `kernels` JSON line (each kernel's
+launches on its main path, and per path of the later slices), and as the
+last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -102,6 +145,8 @@ import json
 import math
 import os
 import re
+import resource
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -143,6 +188,12 @@ TRAIN_LOSS_RTOL = 1e-5        # fp32 losses, card vs CPU (summation order)
 # fp32 params after 2 AdamW steps, card vs CPU: where a gradient is ~eps an
 # update can flip sign, so the bound is two steps of lr (<= 2e-4) each way
 TRAIN_PARAM_ATOL = 1e-3
+TRAIN_LONG_ARGV = ["--arch", "gemma2-2b", "--seq", "4096", "--global-batch",
+                   "1", "--steps", "3", "--ckpt-every", "3"]
+# losses of a step replayed after a restore against the first pass and an
+# unbroken run, on the card: the embedding's backward adds with atomics, so
+# two CUDA runs of one step may differ in the last bit
+RESTORE_RTOL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -679,12 +730,19 @@ def phase_collectives_stacked(seed: int) -> dict:
 def phase_train(seed: int) -> dict:
     from repro_torch.kernels import CHUNK_ACCUM_KERNEL, FLASH_KERNEL
     from repro_torch.launch import train as launch_train
-    argv = TRAIN_ARGV + ["--device", DEV, "--seed", str(seed)]
+    from repro_torch.train import checkpoint
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = TRAIN_ARGV + ["--device", DEV, "--seed", str(seed), "--ckpt-dir",
+                         ckpt]
     flash, accum = FLASH_KERNEL.launches, CHUNK_ACCUM_KERNEL.launches
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    records = launch_train.run(launch_train.build_parser().parse_args(argv))
+    try:
+        records = launch_train.run(
+            launch_train.build_parser().parse_args(argv))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     wall = time.perf_counter() - t0
     losses = [r["loss"] for r in records]
     assert all(math.isfinite(l) for l in losses), losses
@@ -704,40 +762,19 @@ def phase_train(seed: int) -> dict:
                steady_tok_per_s=sum(r["tokens"] for r in steady)
                / sum(r["seconds"] for r in steady),
                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-               / 1e9, wall_s=wall)
+               / 1e9, wall_s=wall,
+               final_checkpoint=dict(checkpoint.timings))
     emit("train", **res)
     torch.cuda.empty_cache()
     return res
 
 
 def phase_train_vs_cpu(seed: int) -> None:
-    from repro_torch.configs import reduced_config
-    from repro_torch.models import build_model
-    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
-                                   host_batch_slice, init_adamw,
-                                   make_train_step)
     for name in ("qwen3-8b", "gemma2-2b"):
-        cfg = reduced_config(name)
-        model = build_model(cfg, remat=True)
-        cpu = model.init(seed, torch.float32, "cpu")
-        gpu = copy.deepcopy(cpu).to(DEV)
-        tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=10,
-                                               total_steps=2))
-        step = make_train_step(model, tc)
-        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
-                        global_batch=4, seed=seed)
-        opt_c, opt_g = init_adamw(cpu), init_adamw(gpu)
-        loss_err = 0.0
-        for i in range(2):
-            batch = host_batch_slice(dc, i, 0, 4)
-            cpu, opt_c, mc = step(cpu, opt_c, batch)
-            gpu, opt_g, mg = step(gpu, opt_g,
-                                  {k: v.to(DEV) for k, v in batch.items()})
-            lc, lg = float(mc["loss"]), float(mg["loss"])
-            assert math.isfinite(lg)
-            loss_err = max(loss_err, abs(lg - lc) / abs(lc))
-        param_err = max((pg.cpu() - pc).abs().max().item() for pc, pg in
-                        zip(cpu.parameters(), gpu.parameters()))
+        _, losses, _, cpu, gpu = _train_pair(name, seed, seq=64, batch=4,
+                                             steps=2)
+        assert all(math.isfinite(lg) for _, lg in losses)
+        loss_err, param_err = _train_errs(losses, cpu, gpu)
         assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
         assert param_err <= TRAIN_PARAM_ATOL, (name, param_err)
         emit("train_vs_cpu", arch=name, reduced=True, steps=2,
@@ -745,16 +782,61 @@ def phase_train_vs_cpu(seed: int) -> None:
              max_abs_param_err=param_err, param_atol=TRAIN_PARAM_ATOL)
 
 
+def _train_pair(name: str, seed: int, seq: int, batch: int, steps: int):
+    """(config, [(cpu loss, card loss)], blockwise calls per step and side,
+    cpu params, card params) of `steps` train steps of reduced `name` from
+    one init on the CPU and on the card."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import BLOCKWISE
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   host_batch_slice, init_adamw,
+                                   make_train_step)
+    cfg = reduced_config(name)
+    model = build_model(cfg, remat=True)
+    cpu = model.init(seed, torch.float32, "cpu")
+    gpu = copy.deepcopy(cpu).to(DEV)
+    step = make_train_step(model, TrainConfig(optimizer=AdamWConfig(
+        lr=1e-3, warmup_steps=10, total_steps=steps)))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=batch, seed=seed)
+    opt_c, opt_g = init_adamw(cpu), init_adamw(gpu)
+    losses, calls = [], []
+    for i in range(steps):
+        data = host_batch_slice(dc, i, 0, batch)
+        before = BLOCKWISE.calls
+        cpu, opt_c, mc = step(cpu, opt_c, data)
+        calls.append(BLOCKWISE.calls - before)
+        before = BLOCKWISE.calls
+        gpu, opt_g, mg = step(gpu, opt_g,
+                              {k: v.to(DEV) for k, v in data.items()})
+        calls.append(BLOCKWISE.calls - before)
+        losses.append((float(mc["loss"]), float(mg["loss"])))
+    return cfg, losses, calls, cpu, gpu
+
+
+def _train_errs(losses, cpu, gpu):
+    """(largest relative loss gap, largest absolute param gap), card vs
+    CPU."""
+    return (max(abs(lg - lc) / abs(lc) for lc, lg in losses),
+            max((pg.cpu() - pc).abs().max().item() for pc, pg in
+                zip(cpu.parameters(), gpu.parameters())))
+
+
 def phase_train_entry_point() -> None:
     t0 = time.perf_counter()
     cmd = ["-m", "repro_torch.launch.train", "--arch", "qwen3-8b",
            "--reduced", "--steps", "2", "--collectives", "pipeline"]
-    proc = subprocess.run(
-        [sys.executable, *cmd], cwd=ROOT, capture_output=True, text=True,
-        timeout=600, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    with tempfile.TemporaryDirectory() as ckpt:
+        proc = subprocess.run(
+            [sys.executable, *cmd, "--ckpt-dir", ckpt], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.splitlines()
-    assert "done at step 2" in lines, proc.stdout
+    # the supervisor's counts follow the step on the launcher's last line
+    assert re.fullmatch(r"done at step 2; stragglers: \d+; link faults "
+                        r"repaired: False", lines[-1]), proc.stdout
     assert "data-parallel 1: no collective runs" in lines, proc.stdout
     emit("train_entry_point", command="python " + " ".join(cmd),
          rc=proc.returncode, seconds=time.perf_counter() - t0)
@@ -842,15 +924,18 @@ def phase_ssd_vs_plain(seed: int) -> dict:
     worst = {dtype: 0.0 for dtype in dtypes}
     cases = {str(dtype)[6:]: 0 for dtype in dtypes}     # "float32": ...
     equal = dict(cases)
-    failures = []
+    failures, fp32_unequal = [], []
 
-    def check(label, got, ref, dtype, q, p, n):
+    def check(label, got, ref, dtype, q, p, n, inputs):
         err, ok, same = _ssd_err(got, ref, dtype)
         cases[str(dtype)[6:]] += 1
         equal[str(dtype)[6:]] += same
         worst[dtype] = max(worst[dtype], err)
         if not ok:
             failures.append((label, str(dtype), q, p, n, err))
+        if dtype == torch.float32 and not same:
+            fp32_unequal.append(_ssd_unequal(label, got, ref, q, p, n,
+                                             inputs))
 
     # chunks of whole tiles (64 rows) and ragged ones (48, 100, 129), every
     # (P, N); the entry point's extremes (1 row, 4096 rows) and a long
@@ -865,7 +950,7 @@ def phase_ssd_vs_plain(seed: int) -> dict:
             # the model's layout: transposed views, shared b and c
             got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
             torch.cuda.synchronize()
-            check("bshp", got, ref, dtype, q, p, n)
+            check("bshp", got, ref, dtype, q, p, n, (x, dt, a, b, c))
             # the Pallas layout, on flat copies
             bs, s, h = x.shape[:3]
             y, st = ssd_chunk_intra(
@@ -875,7 +960,7 @@ def phase_ssd_vs_plain(seed: int) -> dict:
             torch.cuda.synchronize()
             check("flat", (y.view(bs, h, s, p).transpose(1, 2),
                            st.view(bs, h, s // q, p, n).transpose(1, 2)),
-                  ref, dtype, q, p, n)
+                  ref, dtype, q, p, n, (x, dt, a, b, c))
     # b and c as slices of one [B, S, 1 + 2N] tensor, rows 2 bytes off 16:
     # the wrapper copies them to dense ones for the bf16 loads
     for q, p, n in ((64, 64, 128), (129, 32, 64)):
@@ -885,12 +970,18 @@ def phase_ssd_vs_plain(seed: int) -> dict:
         ref = ssd_chunk_intra_bshp(x, dt, a, b, c, q, plain=True)
         got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
         torch.cuda.synchronize()
-        check("unaligned_bc", got, ref, torch.bfloat16, q, p, n)
+        check("unaligned_bc", got, ref, torch.bfloat16, q, p, n, None)
     assert not failures, f"SSD kernel disagrees with its plain version: " \
         f"{failures}"
+    # fp32 is bit-equal to the plain version but for the documented
+    # exception: a chunk of one row, where y must then equal the kernel's
+    # own order of adds
+    unexplained = [c for c in fp32_unequal
+                   if not (c["q"] == 1 and c["y_in_kernel_order"])]
+    assert not unexplained, f"fp32 SSD not bit-equal: {unexplained}"
 
     res = dict(cases=sum(cases.values()), cases_per_dtype=cases,
-               bit_equal_cases=equal,
+               bit_equal_cases=equal, fp32_not_bit_equal=fp32_unequal,
                max_abs_err_f32=worst[torch.float32],
                max_abs_err_bf16=worst[torch.bfloat16],
                tol_f32=SSD_TOL, tol_bf16_y=SSD_TOL_BF16_Y)
@@ -902,6 +993,30 @@ def phase_ssd_vs_plain(seed: int) -> dict:
     emit("ssd_vs_plain", **res)
     torch.cuda.empty_cache()
     return res
+
+
+def _ssd_unequal(label, got, ref, q, p, n, inputs) -> dict:
+    """Where an fp32 case differs from the plain version: per output, the
+    differing elements, the first one's index and the largest gap.  For a
+    chunk of one row, y = (C . B) x dt with L = 1: whether the kernel's y
+    equals C . B summed over n in order, one fused multiply-add at a time
+    (each emulated as a float64 product and sum rounded to float32), times
+    x dt, which is the kernel's order."""
+    out = dict(label=label, q=q, p=p, n=n)
+    for name, g, r in (("y", got[0], ref[0]), ("states", got[1], ref[1])):
+        if not torch.equal(g, r):
+            d = g != r
+            out[name] = dict(differing=int(d.sum()), of=d.numel(),
+                             first_index=d.nonzero()[0].tolist(),
+                             max_abs_gap=(g - r).abs().max().item())
+    if q == 1:
+        x, dt, _, b, c = inputs
+        s = torch.zeros(b.shape[:2], dtype=torch.float32, device=b.device)
+        for k in range(n):
+            s = (c[..., k].double() * b[..., k].double() + s.double()).float()
+        y = s[:, :, None, None] * (x * dt[..., None])
+        out["y_in_kernel_order"] = torch.equal(got[0], y)
+    return out
 
 
 def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
@@ -1095,6 +1210,291 @@ def phase_ssm_entry_point() -> None:
          seconds=time.perf_counter() - t0)
 
 
+def _fresh_host_state(name: str):
+    """An uninitialised (params, AdamWState) of the model at full width on
+    the host: the template a checkpoint is restored into."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.train import AdamWState
+    with torch.device("meta"):
+        lm = DecoderLM(get_config(name))
+    lm = lm.to_empty(device="cpu")
+    moments = [{n: torch.empty_like(p) for n, p in lm.named_parameters()}
+               for _ in range(2)]
+    return lm, AdamWState(0, *moments)
+
+
+def phase_train_long(seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
+                                     SSD_KERNEL)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.attention import BLOCKWISE
+    from repro_torch.train import checkpoint
+    cfg = get_config(TRAIN_LONG_ARGV[1])
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_long_")
+    argv = TRAIN_LONG_ARGV + ["--device", DEV, "--seed", str(seed),
+                              "--ckpt-dir", ckpt]
+    args = launch_train.build_parser().parse_args(argv)
+    n_params = sum(math.prod(sh) for sh in _grad_shapes(args.arch).values())
+    # params, mu and nu in float32, and the optimizer's step
+    need = 3 * 4 * n_params
+    disk = shutil.disk_usage(ckpt)
+    emit("train_long_disk", ckpt_dir=ckpt, free_bytes=disk.free,
+         total_bytes=disk.total, checkpoint_bytes_expected=need)
+    assert disk.free > 1.1 * need, \
+        f"{ckpt} cannot hold one checkpoint ({disk.free} < {need} bytes)"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FLASH_KERNEL.launches = CHUNK_ACCUM_KERNEL.launches = 0
+    SSD_KERNEL.launches = BLOCKWISE.calls = 0
+    keep = {}
+    try:
+        t0 = time.perf_counter()
+        records = launch_train.run(args, keep=keep)
+        wall = time.perf_counter() - t0
+        blockwise = BLOCKWISE.calls
+        launches = dict(flash_attention=FLASH_KERNEL.launches,
+                        chunk_accum=CHUNK_ACCUM_KERNEL.launches,
+                        ssd_chunk=SSD_KERNEL.launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        saved = dict(checkpoint.timings)
+        assert checkpoint.all_steps(ckpt) == [args.steps]
+        # restore into a fresh state on the host (the card holds the live
+        # one) and compare leaf by leaf
+        live = keep["state"]
+        fresh = _fresh_host_state(args.arch)
+        t0 = time.perf_counter()
+        (params, opt), step = checkpoint.restore(ckpt, fresh)
+        restore_s = time.perf_counter() - t0
+        assert step == args.steps and opt.step == live[1].step
+        leaves = 0
+        for (name, got), (_, want) in zip(checkpoint.flatten((params, opt)),
+                                          checkpoint.flatten(live)):
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(got, want.cpu()), name
+            else:
+                assert got == want, name
+            leaves += 1
+        del params, opt, fresh
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [r["loss"] for r in records]
+    assert len(records) == args.steps
+    assert all(math.isfinite(l) for l in losses), losses
+    # every attention layer of every forward and of its recomputation in
+    # the backward went blockwise; autograd launches no kernel
+    assert blockwise == 2 * cfg.num_layers * args.steps, blockwise
+    assert not any(launches.values()), launches
+    steady = records[1:]
+    res = dict(command="repro_torch.launch.train " + " ".join(argv),
+               layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, params=n_params, seq=args.seq,
+               global_batch=args.global_batch,
+               compute_dtype="float32" if args.reduced else "bfloat16",
+               params_dtype="float32", losses=losses,
+               step_s=[r["seconds"] for r in records],
+               tokens_per_step=records[0]["tokens"],
+               steady_tok_per_s=sum(r["tokens"] for r in steady)
+               / sum(r["seconds"] for r in steady),
+               blockwise_calls=blockwise,
+               blockwise_calls_expected="2 x layers x steps",
+               kernel_launches=launches, max_memory_allocated_gb=peak,
+               wall_s=wall, checkpoint_step=args.steps,
+               checkpoint_bytes=saved.get("bytes"),
+               checkpoint_leaves=leaves, reduced=None,
+               save_to_host_s=saved.get("to_host_s"),
+               save_write_s=saved.get("write_s"),
+               save_wait_s=saved.get("wait_s"), restore_s=restore_s,
+               restore_to="host (the card holds the live state)",
+               restored_equal=True,
+               host_max_rss_gb=resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss / 1e6)
+    emit("train_long", **res)
+    del keep, live
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_long_vs_cpu(seed: int) -> None:
+    seq, steps = 2304, 2
+    for name in ("gemma2-2b", "qwen3-8b"):
+        t0 = time.perf_counter()
+        cfg, losses, calls, cpu, gpu = _train_pair(name, seed, seq, batch=2,
+                                                   steps=steps)
+        assert all(math.isfinite(lg) for _, lg in losses)
+        # forward and recomputation of every layer, on both sides
+        assert calls == [2 * cfg.num_layers] * (2 * steps), calls
+        loss_err, param_err = _train_errs(losses, cpu, gpu)
+        assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
+        assert param_err <= TRAIN_PARAM_ATOL, (name, param_err)
+        emit("train_long_vs_cpu", arch=name, reduced=True, seq=seq,
+             global_batch=2, steps=steps, blockwise_calls_per_step=calls[0],
+             max_rel_loss_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+             max_abs_param_err=param_err, param_atol=TRAIN_PARAM_ATOL,
+             seconds=time.perf_counter() - t0)
+
+
+def _supervised_losses(seed: int, ckpt: str, crash_after: int = -1,
+                       steps: int = 6) -> list:
+    """[(step, loss)] of reduced qwen3-8b on the card under TrainSupervisor
+    (a checkpoint every 3 steps); the step function raises once after
+    computing step `crash_after`, before the supervisor commits it."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   TrainSupervisor, host_batch_slice,
+                                   init_train_state, make_train_step)
+    cfg = reduced_config("qwen3-8b")
+    model = build_model(cfg, remat=True)
+    state = init_train_state(model, seed, DEV)
+    train = make_train_step(model, TrainConfig(optimizer=AdamWConfig(
+        lr=1e-3, warmup_steps=10, total_steps=steps)))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                    seed=seed)
+    seen = []
+
+    def step_fn(step, state):
+        batch = {k: v.to(DEV) for k, v in
+                 host_batch_slice(dc, step, 0, 4).items()}
+        params, opt, metrics = train(*state, batch)
+        seen.append((step, float(metrics["loss"])))
+        if step == crash_after and len(seen) == crash_after + 1:
+            raise RuntimeError("injected crash after the step")
+        return (params, opt), metrics
+
+    sup = TrainSupervisor(ckpt_dir=ckpt, ckpt_every=3, max_restarts=1)
+    _, final = sup.run(state=state, num_steps=steps, step_fn=step_fn,
+                       log_every=0, log=lambda line: None)
+    assert final == steps
+    return seen
+
+
+def phase_supervisor_restore(seed: int) -> None:
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as a, \
+            tempfile.TemporaryDirectory() as b:
+        crashed = _supervised_losses(seed, a, crash_after=4)
+        unbroken = _supervised_losses(seed, b)
+    steps = [s for s, _ in crashed]
+    # steps 0-4, the crash after 4, the restore of step 3's checkpoint
+    assert steps == [0, 1, 2, 3, 4, 3, 4, 5], steps
+    first, replay = dict(crashed[:5]), crashed[5:]
+    ref = dict(unbroken)
+    gaps = [abs(loss - first[s]) / abs(first[s]) for s, loss in replay[:2]]
+    gaps += [abs(loss - ref[s]) / abs(ref[s]) for s, loss in replay]
+    assert max(gaps) <= RESTORE_RTOL, gaps
+    emit("supervisor_restore", arch="qwen3-8b", reduced=True, ckpt_every=3,
+         crash_after_step=4, steps_run=steps, replayed=replay,
+         max_rel_gap=max(gaps), rtol=RESTORE_RTOL,
+         seconds=time.perf_counter() - t0)
+
+
+def _stacked_bucket(seed: int, elems: int) -> torch.Tensor:
+    gens = [torch.Generator(device=DEV).manual_seed(seed * 1000 + r)
+            for r in range(RANKS)]
+    stack = torch.empty((RANKS, elems), device=DEV)
+    for r in range(RANKS):
+        stack[r].normal_(generator=gens[r])
+    return stack
+
+
+def phase_schedule_cache(seed: int) -> dict:
+    from repro_torch.api import Collectives
+    from repro_torch.cache import allreduce_to_json
+    from repro_torch.comms import BucketedAllReduce, Stacked
+    from repro_torch.kernels import CHUNK_ACCUM_KERNEL
+    from repro_torch.topo import axis_topology_for_mesh
+    stack = _stacked_bucket(seed, (64 << 20) // 4)
+    launches = 0
+    for label, topo in (("dgx:8", "dgx:8"),
+                        ("data-ring8", axis_topology_for_mesh("data",
+                                                              RANKS))):
+        with tempfile.TemporaryDirectory() as d:
+            cold = Collectives(cache=d)
+            t0 = time.perf_counter()
+            art = cold.schedule(topo, kind="allreduce")
+            compile_s = time.perf_counter() - t0
+            (path,) = [os.path.join(d, f) for f in os.listdir(d)
+                       if f.startswith("allreduce-") and f.endswith(".json")]
+            with open(path, "rb") as f:
+                stored = f.read()
+            warm = Collectives(cache=d)
+            t0 = time.perf_counter()
+            again = warm.schedule(topo, kind="allreduce")
+            hit_s = time.perf_counter() - t0
+            stats = warm.cache.stats
+            assert (stats.hits, stats.misses) == (1, 0), stats.describe()
+            with open(path, "rb") as f:
+                assert f.read() == stored
+            assert allreduce_to_json(again).encode() == stored
+            assert allreduce_to_json(art).encode() == stored
+        outs = []
+        CHUNK_ACCUM_KERNEL.launches = 0
+        for a in (art, again):
+            red = BucketedAllReduce.from_schedule(a, Stacked(RANKS),
+                                                  wire_dtype=None)
+            outs.append(red.reduce_bucket(stack))
+        torch.cuda.synchronize()
+        n = CHUNK_ACCUM_KERNEL.launches
+        assert n > 0, label
+        launches += n
+        assert torch.equal(outs[0], outs[1]), label
+        emit("schedule_cache", topology=label, artifact_bytes=len(stored),
+             compile_s=compile_s, hit_s=hit_s, hit_stats=stats.describe(),
+             payload_byte_identical=True, bucket_elems_per_rank=stack.shape[1],
+             ranks=RANKS, bucket_equal=True, chunk_accum_launches=n)
+        del outs
+    del stack
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
+def phase_repair_stacked(seed: int) -> dict:
+    from repro_torch.comms import CollectiveContext, Stacked
+    from repro_torch.kernels import CHUNK_ACCUM_KERNEL
+    from repro_torch.topo.spec import TransformSpec
+    stack = _stacked_bucket(seed + 1, (64 << 20) // 4)
+    ctx = CollectiveContext({"data": RANKS})
+    red = ctx.bucketed_allreduce("data", Stacked(RANKS), wire_dtype=None)
+    rs_calls = red.rs_prog.num_calls
+    before = (red.reduce_bucket(stack) - stack.sum(0)).abs().max().item()
+    assert before <= STACK_ATOL, before
+    fault = "@fail(0-1)"
+    degraded = TransformSpec.parse_text(fault).apply(ctx.topology("data"))
+    t0 = time.perf_counter()
+    reports = ctx.hot_swap(fault)
+    swap_s = time.perf_counter() - t0
+    red = ctx.bucketed_allreduce("data", Stacked(RANKS), wire_dtype=None)
+    torch.cuda.synchronize()
+    CHUNK_ACCUM_KERNEL.launches = 0
+    got = red.reduce_bucket(stack)
+    torch.cuda.synchronize()
+    launches = CHUNK_ACCUM_KERNEL.launches
+    assert launches > 0
+    cold = CollectiveContext({"data": RANKS}, topologies={"data": degraded})
+    ref = cold.bucketed_allreduce("data", Stacked(RANKS),
+                                  wire_dtype=None).reduce_bucket(stack)
+    assert torch.equal(got, ref)
+    err = (got - stack.sum(0)).abs().max().item()
+    assert err <= STACK_ATOL, err
+    emit("repair_stacked", topology="data-ring8", transform=fault,
+         degraded=degraded.name, ranks=RANKS,
+         bucket_elems_per_rank=stack.shape[1],
+         reports=[dict(axis=a, kind=r.kind, repair_time_s=r.repair_time_s,
+                       warm_solve=r.warm_solve, warm_split=r.warm_split,
+                       cached=r.cached, verified=r.verified)
+                  for a, reps in reports.items() for r in reps],
+         hot_swap_s=swap_s, rs_calls_before=rs_calls,
+         rs_calls_repaired=red.rs_prog.num_calls,
+         max_abs_err_vs_sum_before=before, equal_cold_degraded=True,
+         max_abs_err_vs_sum=err, atol=STACK_ATOL,
+         repaired_chunk_accum_launches=launches)
+    del stack, got, ref
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1125,6 +1525,16 @@ def main() -> int:
     phase_ssm_model_vs_cpu(args.seed)
     ssm_serve = phase_serve_ssm(args.seed)
     phase_ssm_entry_point()
+    long = phase_train_long(args.seed)
+    phase_train_long_vs_cpu(args.seed)
+    phase_supervisor_restore(args.seed)
+    cache = phase_schedule_cache(args.seed)
+    repair = phase_repair_stacked(args.seed)
+    # the later slices' paths, each counted from 0 just before it
+    paths = {name: {"train_long": n} for name, n in
+             long["kernel_launches"].items()}
+    paths["chunk_accum"].update(schedule_cache=cache["launches"],
+                                repair_stacked=repair["launches"])
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1132,6 +1542,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
         "launches": serve["flash_launches"],
+        "launches_by_path": paths["flash_attention"],
         "max_abs_err": kern["main_max_abs_err"],
         "held_against_plain": True,
         "ms": kern["kernel_ms"], "plain_ms": kern["plain_ms"],
@@ -1141,6 +1552,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/chunk_accum.cu",
         "replaces": "src/repro/kernels/chunk_accum.py:23",
         "launches": coll["launches"],
+        "launches_by_path": paths["chunk_accum"],
         "max_abs_err": accum["max_abs_err"],
         "held_against_plain": True,
         "ms": accum["kernel_ms"], "plain_ms": accum["plain_ms"],
@@ -1150,6 +1562,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:32",
         "launches": ssm_serve["ssd_launches"],
+        "launches_by_path": paths["ssd_chunk"],
         "max_abs_err": ssd["main_max_abs_err"],
         "held_against_plain": True,
         "ms": ssd["kernel_ms"], "plain_ms": ssd["plain_ms"],

@@ -12,12 +12,15 @@ The schedule level of src/repro/api.py, over the port's copy of the compiler
     fn = coll.executable("bring:8", kind="allreduce", comm=Stacked(8))
 
 Topology arguments accept a `DiGraph`, a `repro_torch.topo.TopologySpec`, a
-zoo row name or a raw spec string, as in the reference.  The on-disk schedule
-cache and online repair are not ported yet (ROADMAP.md, queue A items A1 and
-A6): every call compiles.
+zoo row name or a raw spec string, as in the reference.  With a cache
+attached (``Collectives(cache="/tmp/schedules")``, a path or a ready
+`repro_torch.cache.ScheduleCache`) every method is replay-first and misses
+compile and persist; `repair` delta-recompiles an artifact for a degraded
+fabric, and with a cache replays a stored repair.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
@@ -69,22 +72,32 @@ class CompileOptions:
 
 
 class Collectives:
-    """Facade over the staged compiler pipeline.  Keywords set the default
-    `CompileOptions` that per-call keywords override.  ``cache`` must be
-    None: the schedule cache is the next slice of the port."""
+    """Facade owning the schedule cache and the staged compiler pipeline.
+
+    ``cache`` is ``None`` (always compile), a directory path (an on-disk
+    `repro_torch.cache.ScheduleCache` is created there, inheriting
+    ``verify`` as its compile-time verification flag), or a ready
+    `ScheduleCache`.  Remaining keywords set the default `CompileOptions`
+    that per-call keywords override."""
 
     def __init__(self, cache: Any = None, *,
                  options: Optional[CompileOptions] = None,
                  **defaults: Any):
-        if cache is not None and cache != "":
-            raise NotImplementedError(
-                "the on-disk schedule cache is not ported yet (ROADMAP.md "
-                "queue A, item A1: --schedule-cache); pass cache=None")
         if options is not None and defaults:
             raise TypeError("pass either options= or default keywords, "
                             "not both")
         self.options = options if options is not None \
             else CompileOptions(**defaults)
+        self.cache = self._resolve_cache(cache, self.options.verify)
+
+    @staticmethod
+    def _resolve_cache(cache: Any, verify: bool):
+        if cache is None or cache == "":
+            return None
+        if isinstance(cache, (str, bytes)) or hasattr(cache, "__fspath__"):
+            from repro_torch.cache.store import ScheduleCache
+            return ScheduleCache(cache, verify_on_compile=verify)
+        return cache        # a ready ScheduleCache (or test double)
 
     # -------------------------------------------------------------- #
     # request plumbing
@@ -100,6 +113,21 @@ class Collectives:
         base = opts if opts is not None else self.options
         return base.replace(**overrides) if overrides else base
 
+    @contextlib.contextmanager
+    def _verify_on_compile(self, verify: bool):
+        """Honor a per-call ``verify=True`` on the cache's miss path (hits
+        replay an already-verified artifact).  Raising the flag only: a
+        cache constructed with ``verify=True`` keeps verifying."""
+        cache = self.cache
+        if not verify or getattr(cache, "verify_on_compile", False):
+            yield
+            return
+        cache.verify_on_compile = True
+        try:
+            yield
+        finally:
+            cache.verify_on_compile = False
+
     # -------------------------------------------------------------- #
     # schedules
     # -------------------------------------------------------------- #
@@ -108,30 +136,44 @@ class Collectives:
                  opts: Optional[CompileOptions] = None,
                  **overrides: Any) -> Artifact:
         """One compiled artifact (`PipelineSchedule`, or
-        `AllReduceSchedule` for ``kind="allreduce"``)."""
+        `AllReduceSchedule` for ``kind="allreduce"``), cache-first."""
         g = self.topology(topo)
         o = self.opts(opts, **overrides)
+        root = o.resolved_root(g)
+        if self.cache is not None:
+            with self._verify_on_compile(o.verify):
+                if o.kind in ROOTED_KINDS:
+                    return getattr(self.cache, o.kind)(
+                        g, root=root, num_chunks=o.num_chunks)
+                return getattr(self.cache, o.kind)(
+                    g, num_chunks=o.num_chunks, fixed_k=o.fixed_k)
         if o.kind in ROOTED_KINDS:
             return getattr(schedule_mod, f"compile_{o.kind}")(
-                g, root=o.resolved_root(g), num_chunks=o.num_chunks,
-                verify=o.verify)
+                g, root=root, num_chunks=o.num_chunks, verify=o.verify)
         return getattr(schedule_mod, f"compile_{o.kind}")(
             g, num_chunks=o.num_chunks, fixed_k=o.fixed_k, verify=o.verify)
 
     def family(self, topo: SpecLike,
                kinds: Sequence[str] = PAIR_KINDS,
                opts: Optional[CompileOptions] = None,
+               timings: Optional[Dict[str, float]] = None,
                **overrides: Any) -> Dict[str, Artifact]:
         """One topology's collective family compiled together — the §2.1
         solve and the split/pack products shared across kinds, byte-identical
-        to per-kind compiles."""
+        to per-kind compiles (`ScheduleCache.family` on the cache path).
+        ``timings`` receives per-kind marginal wall seconds."""
         g = self.topology(topo)
         o = self.opts(opts, **overrides)
         root = (o.replace(kind="broadcast").resolved_root(g)
                 if any(k in ROOTED_KINDS for k in kinds) else None)
+        if self.cache is not None:
+            with self._verify_on_compile(o.verify):
+                return self.cache.family(g, kinds, num_chunks=o.num_chunks,
+                                         fixed_k=o.fixed_k, root=root,
+                                         timings=timings)
         return plan_mod.compile_family(
             g, kinds=kinds, num_chunks=o.num_chunks, root=root,
-            fixed_k=o.fixed_k, verify=o.verify)
+            fixed_k=o.fixed_k, verify=o.verify, timings=timings)
 
     def pair(self, topo: SpecLike,
              opts: Optional[CompileOptions] = None,
@@ -139,6 +181,64 @@ class Collectives:
         """(allgather, reduce_scatter) compiled as one family."""
         fam = self.family(topo, PAIR_KINDS, opts, **overrides)
         return fam["allgather"], fam["reduce_scatter"]
+
+    # -------------------------------------------------------------- #
+    # online repair
+    # -------------------------------------------------------------- #
+
+    def repair(self, artifact: Union[Artifact, SpecLike], transform,
+               opts: Optional[CompileOptions] = None, *,
+               use_cache: bool = True, verify: bool = True,
+               **overrides: Any) -> Tuple[Artifact, Any]:
+        """Delta-recompile a compiled artifact for a degraded topology.
+
+        ``artifact`` is a compiled `PipelineSchedule` / `AllReduceSchedule`
+        (its warm oracle state may still be resident), or any topology form,
+        whose base schedule is acquired first with `schedule()`.
+        ``transform`` is a `repro_torch.topo.spec.TransformSpec` or its text
+        (``"@fail(0-1)"``, ``"@degrade(2-3,cap=1)"``).
+
+        Returns ``(repaired_artifact, RepairReport)``: the artifact is
+        byte-identical to a cold compile of the transformed topology and,
+        with ``verify=True``, replayed chunk by chunk on it.  With a cache,
+        the result is stored under its degraded-topology key plus a
+        transform-keyed ``.repair`` sidecar, so the same (base, transform)
+        repair replays without compiling: the replayed report carries
+        ``cached=True`` and the original repair wall time.  Fixed-k and
+        alltoall artifacts raise `RepairError`."""
+        from repro_torch.core.repair import (RepairError, RepairReport,
+                                             repair_artifact)
+        from repro_torch.topo.spec import TransformSpec
+        spec = (transform if isinstance(transform, TransformSpec)
+                else TransformSpec.parse_text(transform))
+        o = self.opts(opts, **overrides)
+        if o.fixed_k is not None:
+            raise RepairError(
+                "repair requires automatic k: the §2.4 fixed-k floor is "
+                "not recorded on artifacts and its floor-scaled capacities "
+                "do not delta-compose — recompile the degraded topology "
+                "cold instead")
+        if (getattr(artifact, "kind", None) == "alltoall"
+                or (not isinstance(artifact,
+                                   (PipelineSchedule, AllReduceSchedule))
+                    and o.kind == "alltoall")):
+            raise RepairError(
+                "repair does not support alltoall artifacts (the merged "
+                "per-source scatter rounds are rebuilt whole-cloth from "
+                "the packing) — recompile the degraded topology instead")
+        if not isinstance(artifact, (PipelineSchedule, AllReduceSchedule)):
+            artifact = self.schedule(artifact, opts, **overrides)
+        if self.cache is not None and use_cache:
+            hit = self.cache.repaired(artifact, spec)
+            if hit is not None:
+                art, meta = hit
+                report = RepairReport.from_dict(meta["report"])
+                report.cached = True
+                return art, report
+        repaired, report = repair_artifact(artifact, spec, verify=verify)
+        if self.cache is not None and use_cache:
+            self.cache.put_repaired(artifact, spec, repaired, report)
+        return repaired, report
 
     # -------------------------------------------------------------- #
     # lowered programs / executables
@@ -196,4 +296,5 @@ class Collectives:
     # -------------------------------------------------------------- #
 
     def describe(self) -> str:
-        return f"Collectives[{self.options}] cache=none"
+        cache = self.cache.describe() if self.cache is not None else "none"
+        return f"Collectives[{self.options}] cache={cache}"

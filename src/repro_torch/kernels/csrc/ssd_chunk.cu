@@ -78,8 +78,18 @@
 // finish last.
 //
 // fp32: `ssd_chunk_f32`, products as fp32 FMAs on the CUDA cores, so it
-// keeps the exact fp32 arithmetic the 1e-4 checks hold it to (it is
-// bit-equal to the plain version).  Grid: (ceil(Q / 64) + 1, S / Q, B * H).
+// keeps the exact fp32 arithmetic the 1e-4 checks hold it to.  It is
+// bit-equal to the plain version on the card for every chunk from 16 to
+// 4096 rows that chip_smoke.py runs, with one exception: a chunk of one
+// row.  Each sum here runs in order, one fused multiply-add per term (the
+// score C[i] . B[j] over n, y over the keys j, the state over the rows);
+// the plain version's products are cuBLAS GEMMs, which sum in the same
+// order at these shapes, but at Q = 1 the score is a 1 x N by N x 1
+// product that cuBLAS reduces as a dot product in an order of its own.  y
+// then differs from the plain version by that sum's rounding, a few
+// float32 ulps of |C[i]| |B[j]| summed over n times x dt (9.5e-7 at
+// N = 16 in the run that found it); the states, a sum over one row, stay
+// equal.  Phase 13 prints such cases and holds them to this order.  Grid: (ceil(Q / 64) + 1, S / Q, B * H).
 // Block x < ceil(Q / 64) computes y for 64 query rows of the chunk: it
 // stages C[i] once and loops over key tiles of 64 rows, staging B[j] and
 // x[j] dt[j], forming the 64 x 64 tile of scores (C . B) * L in shared

@@ -1,11 +1,13 @@
 """Training entry point: data-parallel training of the dense family with
-gradients carried by the paper's pipeline allreduce or by torch's own.
-Counterpart of src/repro/launch/train.py for --model-parallel 1.
+gradients carried by the paper's pipeline allreduce or by torch's own, under
+the fault-tolerant supervisor.  Counterpart of src/repro/launch/train.py for
+--model-parallel 1.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --steps 3 --global-batch 4 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
-        --reduced --device cpu --data-parallel 4 --collectives pipeline
+        --reduced --device cpu --data-parallel 4 --collectives pipeline \
+        --schedule-cache /tmp/sc --inject-fault 1:0-1
 
 Runs on CUDA unless --device cpu is given; without a card it raises.
 --data-parallel N spawns N ranks with torch.multiprocessing, each with the
@@ -15,12 +17,20 @@ same seeded weights and its rows of the global batch: NCCL over N cards
 the data axis's bandwidth-optimal allreduce schedule (a bidirectional ring,
 the reference's axis model); torch uses torch.distributed.all_reduce.  With
 one rank no collective runs.  Params and AdamW state are fp32; compute is
-bf16 at full width and fp32 with --reduced.  Rank 0 prints each step's loss
-and ends with `done at step N`.
+bf16 at full width and fp32 with --reduced.
+
+Every step runs under `TrainSupervisor`: a checkpoint every --ckpt-every
+steps and at the end (under --ckpt-dir; each rank of several writes its own
+`rank<r>` directory), a crash restores the latest one and replays, and a
+link fault (--inject-fault step:u-v) repairs the data axis's schedules in
+place (`CollectiveContext.hot_swap`) and retries the step.  Rank 0 prints
+each step's loss and ends with `done at step N; stragglers: S; link faults
+repaired: R`.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import socket
 import sys
 import time
@@ -44,6 +54,19 @@ def build_parser() -> argparse.ArgumentParser:
                          "a BucketedAllReduce over the data axis's "
                          "bandwidth-optimal allreduce schedule")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="/tmp/repro_launch_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--schedule-cache", default="",
+                    help="pre-compile the per-axis tree-pipeline collective "
+                         "programs into this on-disk artifact cache (later "
+                         "launches and any pipeline-collectives consumer "
+                         "load them instead of compiling)")
+    ap.add_argument("--inject-fault", default="",
+                    help="'step:u-v' — raise a LinkFault for link u-v at "
+                         "that step.  The supervisor's on_link_fault hook "
+                         "repairs the affected per-axis schedules in place "
+                         "(CollectiveContext.hot_swap) and retries the same "
+                         "step without restoring a checkpoint")
     return ap
 
 
@@ -91,18 +114,21 @@ def _rank_main(rank: int, args: argparse.Namespace, port: int) -> None:
         dist.destroy_process_group()
 
 
-def run(args: argparse.Namespace, rank: int = 0, world: int = 1
-        ) -> List[Dict[str, float]]:
-    """Train on this rank; returns one record per step (loss, seconds,
-    tokens of the global batch)."""
+def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
+        keep: Optional[dict] = None) -> List[Dict[str, float]]:
+    """Train on this rank under the supervisor; returns one record per step
+    run, replays included (step, loss, seconds, tokens of the global
+    batch).  `keep`, if given, receives the final "state"."""
     import torch
     import torch.distributed as dist
 
+    from repro_torch.api import Collectives
     from repro_torch.comms import P2P, CollectiveContext
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.models import build_model
     from repro_torch.models.common import resolve_device
-    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+    from repro_torch.train import (AdamWConfig, DataConfig, FaultInjector,
+                                   TrainConfig, TrainSupervisor,
                                    host_batch_slice, init_train_state,
                                    make_train_step)
 
@@ -115,21 +141,19 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1
     model = build_model(cfg, remat=True)
     params, opt = init_train_state(model, args.seed, device)
 
-    grad_reduce = None
+    ctx = None
     if world == 1:
         say("data-parallel 1: no collective runs")
-    elif args.collectives == "pipeline":
-        ctx = CollectiveContext({"data": world})
+    elif args.schedule_cache or args.collectives == "pipeline":
+        # the data axis's programs through the facade: with a cache the
+        # first launch compiles and persists them, later ones load them
+        coll = Collectives(cache=args.schedule_cache or None)
+        ctx = CollectiveContext({"data": world}, collectives=coll)
         say(ctx.describe())
-        red = ctx.bucketed_allreduce("data", P2P(), wire_dtype=None)
-
-        def grad_reduce(tree):
-            return {k: v / world for k, v in red(tree).items()}
-    else:
-        def grad_reduce(tree):
-            for v in tree.values():
-                dist.all_reduce(v)
-            return {k: v / world for k, v in tree.items()}
+        if coll.cache is not None:
+            say(coll.cache.describe())
+        if args.collectives != "pipeline":
+            say(ctx.compile_stats_report())
 
     tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=10,
                                            total_steps=args.steps),
@@ -138,14 +162,39 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1
                      else torch.bfloat16)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.global_batch)
-    step_fn = make_train_step(model, tc, grad_reduce=grad_reduce)
+    live = {}
+
+    def build_step() -> None:
+        """The train step with its gradient hook: built again after a hot
+        swap, since a BucketedAllReduce keeps the programs it was built
+        from."""
+        grad_reduce = None
+        if world > 1 and args.collectives == "pipeline":
+            red = ctx.bucketed_allreduce("data", P2P(), wire_dtype=None)
+            say(ctx.compile_stats_report())
+
+            def grad_reduce(tree):
+                return {k: v / world for k, v in red(tree).items()}
+        elif world > 1:
+            def grad_reduce(tree):
+                for v in tree.values():
+                    dist.all_reduce(v)
+                return {k: v / world for k, v in tree.items()}
+        live["step"] = make_train_step(model, tc, grad_reduce=grad_reduce)
+
+    build_step()
+    injector = (FaultInjector.parse(args.inject_fault)
+                if args.inject_fault else None)
     per = args.global_batch // world
     records = []
-    for step in range(args.steps):
+
+    def step_fn(step, state):
+        if injector is not None:
+            injector.check(step)
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in host_batch_slice(
             dc, step, rank * per, (rank + 1) * per).items()}
-        params, opt, metrics = step_fn(params, opt, batch)
+        params, opt, metrics = live["step"](*state, batch)
         loss = float(metrics["loss"])           # waits for the step
         seconds = time.perf_counter() - t0
         records.append(dict(step=step, loss=loss, seconds=seconds,
@@ -153,7 +202,35 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1
         say(f"step {step}: loss {loss:.6f} grad_norm "
             f"{float(metrics['grad_norm']):.4f} ({seconds:.3f} s)",
             flush=True)
-    say(f"done at step {args.steps}")
+        return (params, opt), metrics
+
+    def on_link_fault(fault):
+        if ctx is None:
+            say(f"[repair] {fault}: no collective context attached, "
+                f"retrying step")
+            return
+        # repair is deterministic, so every rank swaps in the same programs
+        reports = ctx.hot_swap(fault.transform_text)
+        for axis, reps in reports.items():
+            for r in reps:
+                say(f"[repair] axis {axis} {r.kind}: "
+                    f"{r.repair_time_s * 1000:.1f}ms "
+                    f"warm=(solve={r.warm_solve},split={r.warm_split}) "
+                    f"cached={r.cached}")
+        build_step()
+
+    ckpt_dir = args.ckpt_dir if world == 1 \
+        else os.path.join(args.ckpt_dir, f"rank{rank}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    sup = TrainSupervisor(ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every,
+                          on_link_fault=on_link_fault)
+    # log_every=0: step_fn prints every step's line itself
+    state, final = sup.run(state=(params, opt), num_steps=args.steps,
+                           step_fn=step_fn, log_every=0, log=say)
+    say(f"done at step {final}; stragglers: {len(sup.monitor.flagged)}; "
+        f"link faults repaired: {injector.fired if injector else False}")
+    if keep is not None:
+        keep["state"] = state
     return records
 
 

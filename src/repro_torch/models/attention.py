@@ -3,18 +3,21 @@ prefix-LM masks and KV-cache decode.  Counterpart of
 src/repro/models/attention.py.
 
 Masks are described by (causal, window, prefix_len) plus position vectors and
-evaluated inline.  Two execution paths:
+evaluated inline.  Three execution paths:
 
-* kernel  -- the hand-written flash kernel (repro_torch.kernels) for every
-             CUDA call with more than one query row and no gradient to
-             carry: prompt processing.
-* direct  -- one einsum with the mask inline: decode, every CPU call, and
-             every call under autograd.  The kernel is a forward kernel only,
-             as the reference's is (its `pallas_call` has no VJP, and the
-             reference's training differentiates this plain path).
-
-The reference's third path, the blockwise online softmax in plain ops for
-more than 2048 rows, is not ported yet (ROADMAP.md, queue A).
+* kernel    -- the hand-written flash kernel (repro_torch.kernels) for every
+               CUDA call with more than one query row and no gradient to
+               carry: prompt processing.
+* direct    -- one einsum with the mask inline: decode, and every CPU call
+               or call under autograd over at most 2048 rows.  The kernel is
+               a forward kernel only, as the reference's is (its
+               `pallas_call` has no VJP, and the reference's training
+               differentiates the plain paths).
+* blockwise -- the same calls over more than 2048 rows: online softmax over
+               1024-row query and kv blocks in plain ops, each kv block's
+               step recomputed in the backward instead of stored, and only
+               the window-adjacent kv blocks visited under a sliding window.
+               `BLOCKWISE.calls` counts its calls.
 """
 from __future__ import annotations
 
@@ -23,13 +26,26 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import flash_attention_bshd
 
 from .common import (ModelConfig, NEG_INF, apply_rope, dense_init, rms_norm,
                      softcap)
 
-BLOCKWISE_THRESHOLD = 2048      # the reference goes blockwise above this
+BLOCKWISE_THRESHOLD = 2048      # use the blockwise path above this many rows
+BLOCK_Q = 1024
+BLOCK_KV = 1024
+
+
+class CallCount:
+    """Calls of a plain path, counted as a kernel wrapper counts launches."""
+
+    def __init__(self) -> None:
+        self.calls = 0
+
+
+BLOCKWISE = CallCount()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +134,83 @@ def _direct_attend(q, k, v, q_pos, kv_pos, spec: MaskSpec,
     return out.reshape(b, s, h, d)
 
 
+def _kv_step(m, l, acc, qg, kj, vj, ok, logit_cap):
+    """One kv block of the online softmax: (m, l, acc) after block (kj, vj)
+    whose mask against the query block is `ok` [bq, bkv]."""
+    d = qg.shape[-1]
+    logits = torch.einsum("bshgd,bthd->bhgst", qg, kj).float()
+    logits = softcap(logits / d ** 0.5, logit_cap)
+    logits = torch.where(ok, logits, NEG_INF)
+    new_m = torch.maximum(m, logits.amax(dim=-1))          # [B,hkv,g,bq]
+    corr = torch.exp(m - new_m)
+    p = torch.exp(logits - new_m[..., None])
+    new_l = l * corr + p.sum(dim=-1)
+    # the probabilities stay float32 for this product, as in the reference
+    # (unlike the direct path, which rounds them to q's dtype)
+    pv = torch.einsum("bhgst,bthd->bhgsd", p, vj.float())
+    return new_m, new_l, acc * corr[..., None] + pv
+
+
+def _blockwise_attend(q, k, v, q_pos, kv_pos, spec: MaskSpec,
+                      logit_cap: Optional[float], block_q: int = BLOCK_Q,
+                      block_kv: int = BLOCK_KV) -> torch.Tensor:
+    """Online-softmax attention over query and kv blocks in plain ops, with
+    the reference's choices: GQA kv heads expanded up front, query rows
+    padded with position -1 and kv rows with 2**30, float32 softmax state,
+    and under a sliding window only the kv blocks that can meet the window,
+    anchored on the last query row's diagonal block (a clamped index may
+    visit the last block again, fully masked, which changes nothing).
+    Under autograd each kv block's step is recomputed in the backward
+    (`checkpoint`, as the reference's `jax.checkpoint` with
+    `nothing_saveable`), so no [S, T] probabilities are stored.  The
+    reference's sharding constraints have no counterpart on one card."""
+    BLOCKWISE.calls += 1
+    b, s, h, d = q.shape
+    t = k.shape[1]
+    g = h // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    bq, bkv = min(block_q, s), min(block_kv, t)
+    pad_q, pad_kv = (-s) % bq, (-t) % bkv
+    if pad_q:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pad_q), value=-1)
+    if pad_kv:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad_kv), value=2 ** 30)
+    nq, nk = (s + pad_q) // bq, (t + pad_kv) // bkv
+    windowed = spec.causal and spec.window is not None \
+        and spec.prefix_len == 0
+    kblocks = nk if not windowed else \
+        min(nk, -(-(spec.window + bq) // bkv) + 1)
+    recompute = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    outs = []
+    for i in range(nq):
+        qg = q[:, i * bq:(i + 1) * bq].reshape(b, bq, h, 1, d)
+        qpi = q_pos[i * bq:(i + 1) * bq]
+        if windowed:
+            jmax = ((i + 1) * bq - 1) // bkv
+            j0 = max(0, jmax - (kblocks - 1))
+            blocks = [min(j0 + j, nk - 1) for j in range(kblocks)]
+        else:
+            blocks = range(kblocks)
+        m = torch.full((b, h, 1, bq), -float("inf"), device=q.device)
+        l = torch.zeros((b, h, 1, bq), device=q.device)
+        acc = torch.zeros((b, h, 1, bq, d), device=q.device)
+        for jj in blocks:
+            rows = slice(jj * bkv, (jj + 1) * bkv)
+            args = (m, l, acc, qg, k[:, rows], v[:, rows],
+                    spec.allowed(qpi, kv_pos[rows]), logit_cap)
+            m, l, acc = (checkpoint(_kv_step, *args, use_reentrant=False)
+                         if recompute else _kv_step(*args))
+        out = acc / torch.clamp_min(l, 1e-37)[..., None]
+        outs.append(out.movedim(3, 1).reshape(b, bq, h, d))
+    return torch.cat(outs, dim=1)[:, :s].to(q.dtype)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: Optional[torch.Tensor], kv_pos: Optional[torch.Tensor],
            spec: MaskSpec, logit_cap: Optional[float] = None
@@ -126,7 +219,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     0..S-1 / 0..T-1.
 
     Under autograd (grad enabled and an input that requires grad) this takes
-    the plain path on every device, so gradients flow as in the reference.
+    a plain path on every device, so gradients flow as in the reference:
+    direct up to BLOCKWISE_THRESHOLD rows, blockwise above.
     Otherwise, on CUDA with S > 1 it launches the flash kernel, which takes
     row and column indices as positions: it is reached only with both
     positions None, which callers pass where that holds by construction (a
@@ -146,10 +240,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_pos = torch.arange(t, device=q.device)
     if s == 1 or max(s, t) <= BLOCKWISE_THRESHOLD:
         return _direct_attend(q, k, v, q_pos, kv_pos, spec, logit_cap)
-    raise NotImplementedError(
-        f"attention over {max(s, t)} rows on the plain path (the CPU, or "
-        f"under autograd) needs the blockwise path, which is not ported yet "
-        f"(ROADMAP.md queue A, item A3)")
+    return _blockwise_attend(q, k, v, q_pos, kv_pos, spec, logit_cap)
 
 
 # ---------------------------------------------------------------------- #

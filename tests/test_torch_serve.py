@@ -178,12 +178,16 @@ def test_port_imports_neither_jax_nor_repro():
         "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
         "             m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=SRC))
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip()) >= 20    # every module was imported
+    names = set(out.stdout.split())
+    assert len(names) >= 25                 # every module was imported
+    assert {"repro_torch.cache", "repro_torch.cache.store",
+            "repro_torch.train.checkpoint",
+            "repro_torch.train.fault_tolerance"} <= names
 
 
 FORBIDDEN = re.compile(r"\bimport jax\b|\bfrom jax\b|\bimport repro\b(?!_)"

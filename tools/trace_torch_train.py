@@ -2,14 +2,19 @@
 """Trace one training step and one gradient bucket's allreduce of the
 PyTorch port on the card.
 
-    python3 tools/trace_torch_train.py
+    python3 tools/trace_torch_train.py [--seq 4096 --batch 1]
 
 1. train: gemma2-2b at full width (bf16 compute, fp32 masters and AdamW,
-   per-layer recomputation, random weights from seed 0), one step of 4 x 512
-   tokens: the train phase of chip_smoke.py.  After a warm-up step, the two
-   halves of a step (`loss_and_grad`, `adamw_update`) are timed on the host
-   clock with a sync after each, then one whole step runs under
-   torch.profiler.
+   per-layer recomputation, random weights from seed 0), one step of
+   --batch x --seq tokens (4 x 512 by default: the train phase of
+   chip_smoke.py; 1 x 4096 is its train_long phase).  After a warm-up step,
+   the two halves of a step (`loss_and_grad`, `adamw_update`) are timed on
+   the host clock with a sync after each, then one whole step runs under
+   torch.profiler.  Above 2048 rows attention is blockwise, and each kv
+   block's step is recomputed in the backward: `loss_and_grad` is timed
+   again with that recomputation off (the probabilities kept instead,
+   which one layer's backward at a time can hold), and the difference is
+   what the recomputation costs.
 2. allreduce: one 64 MiB-per-rank gradient bucket of 8 ranks stacked on the
    card, through BucketedAllReduce.reduce_bucket on the default data-axis
    model (a bidirectional ring) and on dgx:8, timed after a warm-up and
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -35,7 +41,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
-SEED, ARCH, BATCH, SEQ, RANKS = 0, "gemma2-2b", 4, 512, 8
+SEED, ARCH, RANKS = 0, "gemma2-2b", 8
 
 
 def _summary(prof, wall_s: float, steps: int) -> dict:
@@ -73,8 +79,20 @@ def _traced(fn, steps: int = 1):
     return _summary(prof, wall, steps)
 
 
-def trace_train() -> None:
-    from repro_torch.models import build_model
+def _without_kv_recompute(fn):
+    """fn() with the blockwise attention's per-kv-block recomputation
+    off."""
+    from repro_torch.models import attention
+    saved = attention.checkpoint
+    attention.checkpoint = lambda step, *args, **kw: step(*args)
+    try:
+        return fn()
+    finally:
+        attention.checkpoint = saved
+
+
+def trace_train(batch_size: int, seq: int) -> None:
+    from repro_torch.models import attention, build_model
     from repro_torch.configs import get_config
     from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
                                    adamw_update, host_batch_slice,
@@ -86,11 +104,11 @@ def trace_train() -> None:
     tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=10,
                                            total_steps=10),
                      compute_dtype=torch.bfloat16)
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
-                    global_batch=BATCH)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=batch_size)
     step = make_train_step(model, tc)
     batch = {k: v.cuda() for k, v in
-             host_batch_slice(dc, 0, 0, BATCH).items()}
+             host_batch_slice(dc, 0, 0, batch_size).items()}
     (params, opt, _), warm_s = _timed(lambda: step(params, opt, batch))
     (_, grads, _), lg_s = _timed(
         lambda: loss_and_grad(model, params, batch, tc))
@@ -100,11 +118,28 @@ def trace_train() -> None:
     for p in params.parameters():
         p.grad = None
     (params, opt, _), step_s = _timed(lambda: step(params, opt, batch))
+    extra = {}
+    if seq > attention.BLOCKWISE_THRESHOLD:
+        torch.cuda.reset_peak_memory_stats()
+        _, again_s = _timed(lambda: loss_and_grad(model, params, batch, tc))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        _, kept_s = _timed(lambda: _without_kv_recompute(
+            lambda: loss_and_grad(model, params, batch, tc)))
+        for p in params.parameters():
+            p.grad = None
+        extra = dict(blockwise_calls_per_loss_and_grad=2 * cfg.num_layers,
+                     loss_and_grad_again_s=again_s,
+                     loss_and_grad_kv_kept_s=kept_s,
+                     kv_recompute_s=again_s - kept_s,
+                     kv_recompute_share=(again_s - kept_s) / again_s,
+                     peak_gb_recompute=peak,
+                     peak_gb_kv_kept=torch.cuda.max_memory_allocated() / 1e9)
     summary = _traced(lambda: step(params, opt, batch))
-    print(json.dumps({"phase": "train", "arch": ARCH, "batch": BATCH,
-                      "seq": SEQ, "first_step_s": warm_s,
+    print(json.dumps({"phase": "train", "arch": ARCH, "batch": batch_size,
+                      "seq": seq, "first_step_s": warm_s,
                       "loss_and_grad_s": lg_s, "adamw_update_s": opt_s,
-                      "step_s": step_s, **summary}), flush=True)
+                      "step_s": step_s, **extra, **summary}), flush=True)
 
 
 def trace_allreduce() -> None:
@@ -128,13 +163,22 @@ def trace_allreduce() -> None:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=512)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_torch_train: needs a CUDA card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(json.dumps({"phase": "device",
-                      "name": torch.cuda.get_device_name(0)}), flush=True)
-    trace_train()
+                      "name": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi.strip()}), flush=True)
+    trace_train(args.batch, args.seq)
     torch.cuda.empty_cache()
     trace_allreduce()
     return 0
