@@ -132,6 +132,40 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     time and warm flags, and the repaired program's
                     chunk_accum launches.
 
+22. moe_model_vs_cpu
+                    reduced qwen2-moe-a2.7b (1 shared expert) and
+                    mixtral-8x7b, the same weights on the card and on the
+                    CPU: prefill and decode logits agree, one flash launch
+                    per layer in prefill.
+23. serve_moe       serving path of the moe family: qwen2-moe-a2.7b at full
+                    width (24 layers, d_model 2048, 60 experts top-4 and 4
+                    shared, ~14.3 B params, bf16) serves the serve phase's
+                    prompts (1000, 613, 1024, 96; batch 2, 16 new tokens):
+                    well-formed completions, one flash launch per layer per
+                    batch, finite logits; prefill positions/s, decode
+                    tokens/s, peak memory, routed choices dropped by
+                    capacity in prefill and decode (a count), and eager
+                    launches per decoded token (torch.profiler).  Then
+                    mixtral-8x7b at full width with 4 of its 32 layers (its
+                    93 GB of bf16 weights do not fit), stated in `reduced`.
+24. moe_entry_point `python -m repro_torch.launch.serve --arch
+                    qwen2-moe-a2.7b --reduced` with no --device flag exits 0.
+25. alltoall_stacked
+                    tree_all_to_all on bring:4, bring:8, fig1a and dgx:8
+                    torch.equal to the stacked transpose (f32, bf16); one
+                    full-width MoE layer of qwen2-moe-a2.7b over 4 stacked
+                    ranks and of mixtral-8x7b over 8, 2 x 512 tokens per
+                    rank, through the context's alltoall program: the tree
+                    transport bit-equal to the transpose in bf16, and in
+                    fp32 within MOE_ATOL of each rank's dense dispatch;
+                    ms per call of both transports on the dispatch buffer.
+26. rooted_stacked  64 MiB per rank over the data axis's 8 stacked ranks,
+                    roots 0 and 3: tree_broadcast torch.equal to the root's
+                    buffer on every rank; tree_reduce on the root bit-equal
+                    to the same program with the plain accumulate and within
+                    STACK_ATOL of stack.sum(0); seconds per call and the
+                    chunk_accum launches.
+
 Then the card's line from nvidia-smi, a `kernels` JSON line (each kernel's
 launches on its main path, and per path of the later slices), and as the
 last line {"ok": true, "device": {...}}.
@@ -140,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import datetime
 import json
 import math
@@ -537,16 +572,18 @@ def phase_chunk_accum_vs_plain(seed: int) -> dict:
     return res
 
 
-def phase_model_vs_cpu(seed: int) -> None:
+def phase_model_vs_cpu(seed: int,
+                       names=("qwen3-8b", "gemma2-2b"),
+                       phase: str = "model_vs_cpu") -> None:
     from repro_torch.configs import reduced_config
     from repro_torch.kernels import FLASH_KERNEL
     from repro_torch.models import build_model
     from repro_torch.models import transformer as tf
-    for name in ("qwen3-8b", "gemma2-2b"):
+    for name in names:
         cfg = reduced_config(name)
         model = build_model(cfg)
         cpu = model.init(seed, torch.float32, "cpu")
-        gpu = copy.deepcopy(cpu).to("cuda")
+        gpu = copy.deepcopy(cpu).to(DEV)
         rng = np.random.default_rng(seed)
         b, s, max_len = 2, 77, 96
         tokens = torch.from_numpy(
@@ -557,20 +594,20 @@ def phase_model_vs_cpu(seed: int) -> None:
             cc, lc = tf.lm_prefill(cpu, cfg, tokens,
                                    tf.init_kv_caches(cfg, b, max_len,
                                                      device="cpu"))
-            cg, lg = tf.lm_prefill(gpu, cfg, tokens.cuda(),
+            cg, lg = tf.lm_prefill(gpu, cfg, tokens.to(DEV),
                                    tf.init_kv_caches(cfg, b, max_len,
-                                                     device="cuda"))
+                                                     device=DEV))
             launched = FLASH_KERNEL.launches - before
             for index in range(s, s + 4):
                 worst = max(worst, (lg.cpu() - lc).abs().max().item())
                 tok = lc[:, -1].argmax(-1)[:, None]
                 lc, cc = tf.lm_decode_step(cpu, cfg, tok, cc, index)
-                lg, cg = tf.lm_decode_step(gpu, cfg, tok.cuda(), cg, index)
+                lg, cg = tf.lm_decode_step(gpu, cfg, tok.to(DEV), cg, index)
             worst = max(worst, (lg.cpu() - lc).abs().max().item())
         assert torch.isfinite(lg).all()
         assert launched == cfg.num_layers, (name, launched)
         assert worst <= MODEL_ATOL, (name, worst)
-        emit("model_vs_cpu", arch=name, reduced=True, prompt=[b, s],
+        emit(phase, arch=name, reduced=True, prompt=[b, s],
              decode_steps=4, max_abs_logit_err=worst, atol=MODEL_ATOL,
              flash_launches_in_prefill=launched)
 
@@ -1495,6 +1532,312 @@ def phase_repair_stacked(seed: int) -> dict:
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------- #
+# the MoE family and the collectives it adds (phases 22-26)
+# ---------------------------------------------------------------------- #
+
+SERVE_PROMPTS = (1000, 613, 1024, 96)   # the serve phase's prompts
+# mixtral-8x7b at full width is 46.7 B params (93 GB in bf16): it runs at
+# its published width with the depth cut to fit the card beside the rest
+MIXTRAL_LAYERS = 4
+MOE_A2A = {"qwen2-moe-a2.7b": 4, "mixtral-8x7b": 8}   # stacked ranks
+MOE_A2A_TOKENS = (2, 512)              # [B, S] per rank
+MOE_ATOL = 1e-5      # fp32 expert-parallel vs per-rank dense dispatch,
+#                      relative to the output's largest magnitude (>= 1)
+A2A_SPECS = ("bring:4", "bring:8", "fig1a", "dgx:8")
+ROOTED_BYTES = 64 << 20                # per rank
+ROOTED_ROOTS = (0, 3)
+
+
+class _RouteRecorder:
+    """Wraps `repro_torch.models.moe._route` to keep each call's slots and
+    overflow slot, so dropped choices are counted after a run: no launch
+    and no sync is added to the run itself."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.calls = moe, moe._route, []
+
+    def __enter__(self):
+        def route(p, cfg, xg, cap):
+            out = self.orig(p, cfg, xg, cap)
+            self.calls.append((xg.shape[1], out[3], cfg.num_experts * cap))
+            return out
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+    def dropped(self, decode: bool) -> tuple:
+        """(dropped choices, routed choices) of prefill (decode=False) or
+        decode calls (one token per sequence)."""
+        picked = [(slot, over) for t, slot, over in self.calls
+                  if (t <= 2) == decode]
+        drop = sum(int((slot == over).sum()) for slot, over in picked)
+        return drop, sum(slot.numel() for slot, _ in picked)
+
+
+def _launches_per_decode_token(model, params, prompts, steps: int) -> float:
+    """cudaLaunchKernel calls per decoded token, from torch.profiler over
+    `steps` greedy decode steps of one batch (a count, no timing)."""
+    from torch.profiler import ProfilerActivity, profile
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    with torch.inference_mode():
+        state = model.init_decode_state(len(prompts), plen + steps + 1,
+                                        device=DEV)
+        state, logits = model.prefill(
+            params, {"tokens": torch.from_numpy(toks).to(DEV)}, state)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                logits, state = model.decode_step(params, tok, state,
+                                                  plen + i)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+    n = {e.key: e.count for e in prof.key_averages()}
+    return n.get("cudaLaunchKernel", 0) / (steps * len(prompts))
+
+
+def phase_serve_moe(seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import FLASH_KERNEL
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServingEngine
+    results = {"flash_launches": 0}
+    for name in ("qwen2-moe-a2.7b", "mixtral-8x7b"):
+        full = get_config(name)
+        cfg, reduced = full, None
+        if name == "mixtral-8x7b":
+            cfg = dataclasses.replace(full, num_layers=MIXTRAL_LAYERS)
+            reduced = {"num_layers": [full.num_layers, MIXTRAL_LAYERS]}
+        model = build_model(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(seed, torch.bfloat16, DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        new_tokens, batch_size = 16, 2
+        engine = ServingEngine(model, params, batch_size=batch_size,
+                               max_len=2048)
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(1, cfg.vocab_size, n, dtype=np.int32)
+                   for n in SERVE_PROMPTS]
+        for i, p in enumerate(prompts):
+            engine.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens))
+        n_batches = -(-len(prompts) // batch_size)
+
+        with _RouteRecorder() as rec:
+            FLASH_KERNEL.launches = 0
+            t0 = time.perf_counter()
+            outs = engine.run()
+            wall_s = time.perf_counter() - t0
+            flash = FLASH_KERNEL.launches
+        assert [o.uid for o in outs] == list(range(len(prompts)))
+        for o, p in zip(outs, prompts):
+            assert o.prompt_len == len(p)
+            assert len(o.tokens) == len(p) + new_tokens
+            assert (o.tokens[:len(p)] == p).all()
+            new = o.tokens[len(p):]
+            assert ((new >= 0) & (new < cfg.vocab_size)).all()
+        assert flash == cfg.num_layers * n_batches, (name, flash)
+        assert len(rec.calls) == cfg.num_layers * n_batches * new_tokens
+        drop_p, routed_p = rec.dropped(decode=False)
+        drop_d, routed_d = rec.dropped(decode=True)
+        del rec
+        st = engine.stats
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the first batch's prefill logits: finite, of the expected shape
+        with torch.inference_mode():
+            toks = torch.from_numpy(np.stack(
+                [prompts[0], np.pad(prompts[1], (len(prompts[0])
+                                                 - len(prompts[1]), 0))]
+            ).astype(np.int64)).to(DEV)
+            _, logits = model.prefill(params, {"tokens": toks},
+                                      model.init_decode_state(
+                                          2, len(prompts[0]) + 1,
+                                          device=DEV))
+        assert logits.shape == (2, 1, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+        launches = _launches_per_decode_token(model, params, prompts[:2], 8)
+        res = dict(arch=name, family=cfg.family, layers=cfg.num_layers,
+                   d_model=cfg.d_model, experts=cfg.num_experts,
+                   top_k=cfg.num_experts_per_tok,
+                   shared_experts=cfg.num_shared_experts,
+                   reduced=reduced, dtype="bfloat16", params=n_params,
+                   init_s=init_s, prompts=list(SERVE_PROMPTS),
+                   batch_size=batch_size, new_tokens=new_tokens,
+                   batches=n_batches, wall_s=wall_s,
+                   prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                   prefill_tokens=st["prefill_tokens"],
+                   decode_tokens=st["decode_tokens"],
+                   prefill_tok_per_s=st["prefill_tokens"] / st["prefill_s"],
+                   decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
+                   flash_launches=flash,
+                   moe_dropped_choices_prefill=drop_p,
+                   moe_routed_choices_prefill=routed_p,
+                   moe_dropped_choices_decode=drop_d,
+                   moe_routed_choices_decode=routed_d,
+                   launches_per_decoded_token=launches,
+                   max_memory_allocated_gb=peak_gb,
+                   completions=[[int(t) for t in o.tokens[o.prompt_len:]]
+                                for o in outs])
+        emit("serve_moe", **res)
+        results[name] = res
+        results["flash_launches"] += flash
+        del engine, params, logits
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_moe_entry_point() -> None:
+    t0 = time.perf_counter()
+    cmd = ["-m", "repro_torch.launch.serve", "--arch", "qwen2-moe-a2.7b",
+           "--reduced"]
+    proc = subprocess.run(
+        [sys.executable, *cmd], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    served = [l for l in proc.stdout.splitlines() if l.startswith("req ")]
+    assert len(served) == 6, proc.stdout
+    emit("moe_entry_point", command="python " + " ".join(cmd),
+         rc=proc.returncode, requests=len(served),
+         seconds=time.perf_counter() - t0)
+
+
+def _moe_layer(name: str, seed: int, dtype):
+    """One MoE block of `name` at full width on the card, random weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(name)
+    with torch.device("meta"):
+        layer = moe.MoE(cfg, dtype)
+    layer = layer.to_empty(device=DEV)
+    moe.init_moe(layer, cfg, torch.Generator(device=DEV).manual_seed(seed))
+    return cfg, layer
+
+
+def phase_alltoall_stacked(seed: int) -> None:
+    import functools
+    from repro_torch.api import Collectives
+    from repro_torch.comms import CollectiveContext, Stacked, tree_all_to_all
+    from repro_torch.models import moe
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    cc = Collectives(num_chunks=1)
+    for spec in A2A_SPECS:
+        prog = cc.program(spec, kind="alltoall")
+        a = prog.axis_size
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(a, a, 257, 33, generator=gen, device=DEV
+                            ).to(dtype)
+            y = tree_all_to_all(x, prog, Stacked(a))
+            assert torch.equal(y, x.transpose(0, 1)), (spec, dtype)
+        emit("alltoall_stacked", topology=spec, ranks=a,
+             block=[257, 33], dtypes=["float32", "bfloat16"],
+             calls=prog.num_calls, slots_per_shard=prog.slots_per_shard,
+             equal_transpose=True)
+    for name, a in MOE_A2A.items():
+        ctx = CollectiveContext({"data": a})
+        prog = ctx.alltoall_program("data")
+        comm = Stacked(a)
+        tree = functools.partial(tree_all_to_all, prog=prog, comm=comm)
+        b, s = MOE_A2A_TOKENS
+        out = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg, layer = _moe_layer(name, seed, dtype)
+            x = torch.randn(a, b, s, cfg.d_model, generator=gen,
+                            device=DEV).to(dtype)
+            with torch.inference_mode():
+                y, aux = moe.moe_forward_alltoall(layer, cfg, x, comm)
+                y_tree, aux_tree = moe.moe_forward_alltoall(
+                    layer, cfg, x, comm, all_to_all=tree)
+                assert torch.equal(y, y_tree) and torch.equal(aux, aux_tree)
+                if dtype == torch.float32:
+                    worst, scale = 0.0, 1.0
+                    for r in range(a):
+                        y_loc, _ = moe.moe_forward(layer, cfg, x[r])
+                        scale = max(scale, y_loc.abs().max().item())
+                        worst = max(worst,
+                                    (y[r] - y_loc).abs().max().item())
+                    assert worst <= MOE_ATOL * scale, (name, worst, scale)
+                    out.update(max_abs_err_vs_per_rank=worst,
+                               output_scale=scale)
+                else:
+                    # the dispatch buffer, timed under both transports
+                    t = b * s
+                    cap = moe._capacity(t, cfg)
+                    el = cfg.num_experts // a
+                    buf = torch.randn(a, a, el * cap, cfg.d_model,
+                                      generator=gen, device=DEV).to(dtype)
+                    out.update(
+                        dispatch_buffer=[a, a, el * cap, cfg.d_model],
+                        tree_ms=cuda_ms(lambda: tree(buf), iters=10),
+                        transpose_ms=cuda_ms(
+                            lambda: buf.transpose(0, 1).contiguous(),
+                            iters=10))
+                    del buf
+            del layer, x, y, y_tree
+            torch.cuda.empty_cache()
+        emit("alltoall_stacked", arch=name, ranks=a,
+             topology=ctx.topology("data").name,
+             tokens_per_rank=list(MOE_A2A_TOKENS), calls=prog.num_calls,
+             slots_per_shard=prog.slots_per_shard,
+             bf16_tree_equal_transpose=True, fp32_atol=MOE_ATOL, **out)
+
+
+def phase_rooted_stacked(seed: int) -> dict:
+    from repro_torch.comms import (CollectiveContext, Stacked,
+                                   tree_broadcast, tree_reduce)
+    from repro_torch.kernels import (CHUNK_ACCUM_KERNEL,
+                                     chunk_accum_indexed_reference)
+    stack = _stacked_bucket(seed + 2, ROOTED_BYTES // 4)
+    ctx = CollectiveContext({"data": RANKS})
+    topo = ctx.topology("data")
+    comm = Stacked(RANKS)
+    plain = Stacked(RANKS, accumulate=chunk_accum_indexed_reference)
+    launches = 0
+    for root in ROOTED_ROOTS:
+        bc = ctx.broadcast_program("data", root)
+        rd = ctx.collectives.program(topo, kind="reduce", root=root)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tree_broadcast(stack, bc, comm)
+        torch.cuda.synchronize()
+        bc_s = time.perf_counter() - t0
+        for r in range(RANKS):
+            assert torch.equal(out[r], stack[root]), (root, r)
+        del out
+        CHUNK_ACCUM_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        got = tree_reduce(stack, rd, comm)[root].clone()
+        torch.cuda.synchronize()
+        rd_s = time.perf_counter() - t0
+        n = CHUNK_ACCUM_KERNEL.launches
+        assert n > 0, root
+        launches += n
+        ref = tree_reduce(stack, rd, plain)[root]
+        assert torch.equal(got, ref), root
+        err = (got - stack.sum(0)).abs().max().item()
+        assert err <= STACK_ATOL, (root, err)
+        emit("rooted_stacked", topology=topo.name, root=root, ranks=RANKS,
+             bytes_per_rank=ROOTED_BYTES, broadcast_calls=bc.num_calls,
+             reduce_calls=rd.num_calls, broadcast_s=bc_s, reduce_s=rd_s,
+             broadcast_equal_root=True, reduce_bit_equal_plain=True,
+             max_abs_err_vs_sum=err, atol=STACK_ATOL,
+             chunk_accum_launches=n)
+        del got, ref
+        torch.cuda.empty_cache()
+    del stack
+    torch.cuda.empty_cache()
+    return dict(launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1530,11 +1873,19 @@ def main() -> int:
     phase_supervisor_restore(args.seed)
     cache = phase_schedule_cache(args.seed)
     repair = phase_repair_stacked(args.seed)
+    phase_model_vs_cpu(args.seed, ("qwen2-moe-a2.7b", "mixtral-8x7b"),
+                       "moe_model_vs_cpu")
+    moe_serve = phase_serve_moe(args.seed)
+    phase_moe_entry_point()
+    phase_alltoall_stacked(args.seed)
+    rooted = phase_rooted_stacked(args.seed)
     # the later slices' paths, each counted from 0 just before it
     paths = {name: {"train_long": n} for name, n in
              long["kernel_launches"].items()}
     paths["chunk_accum"].update(schedule_cache=cache["launches"],
-                                repair_stacked=repair["launches"])
+                                repair_stacked=repair["launches"],
+                                rooted_stacked=rooted["launches"])
+    paths["flash_attention"].update(serve_moe=moe_serve["flash_launches"])
 
     print(smi)
     print(json.dumps({"kernels": [{

@@ -267,8 +267,7 @@ class Collectives:
         schedule is compiled, lowered, and bound to the matching
         `repro_torch.comms.collectives.tree_*` executor.  Extra keyword
         arguments of the ``tree_*`` function (e.g. ``accum_dtype``) pass
-        through the returned callable.  Broadcast, reduce and alltoall have
-        no executor in the port yet (ROADMAP.md queue A, items A2, A4)."""
+        through the returned callable."""
         o = self.opts(opts, **overrides)
         from repro_torch.comms import collectives as tree_mod
         if o.kind == "allreduce":
@@ -278,14 +277,14 @@ class Collectives:
                 return tree_mod.tree_all_reduce(x, rs_prog, ag_prog, comm,
                                                 **kw)
             return run_allreduce
-        fns = {"allgather": tree_mod.tree_all_gather,
-               "reduce_scatter": tree_mod.tree_reduce_scatter}
-        if o.kind not in fns:
-            raise NotImplementedError(
-                f"no {o.kind} executor in the port yet (ROADMAP.md queue A: "
-                f"broadcast and reduce are A2, alltoall is A4)")
-        fn = fns[o.kind]
         prog = self.program(topo, o)
+        fn = {
+            "allgather": tree_mod.tree_all_gather,
+            "reduce_scatter": tree_mod.tree_reduce_scatter,
+            "broadcast": tree_mod.tree_broadcast,
+            "reduce": tree_mod.tree_reduce,
+            "alltoall": tree_mod.tree_all_to_all,
+        }[o.kind]
 
         def run(x, **kw):
             return fn(x, prog, comm, **kw)

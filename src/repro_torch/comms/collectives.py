@@ -1,7 +1,8 @@
 """Tree-pipeline collectives: the paper's bandwidth-optimal schedules run as
 static permute programs.  Counterpart of src/repro/comms/collectives.py.
 
-`tree_all_gather`, `tree_reduce_scatter`, `tree_all_reduce` and
+`tree_all_gather`, `tree_reduce_scatter`, `tree_all_to_all`,
+`tree_broadcast`, `tree_reduce`, `tree_all_reduce` and
 `tree_all_reduce_multi` match the reference's functions of the same names
 bit for bit: the same buffer layout, the same program, the same float32
 arithmetic in the same order.  Where the reference runs inside `shard_map`
@@ -21,8 +22,9 @@ Data layout: the per-rank shard is flattened and padded to
 `slots_per_shard` equal chunks; the working buffer is
 [axis_size * slots_per_shard + 1, chunk_elems] per rank, the last row a
 trash row.  Each call gathers its send rows, moves them to the receivers,
-and lands them: a copy for allgather, and for reduce-scatter the float32
-add of `repro_torch.kernels.chunk_accum_indexed` (the comm's `accumulate`).
+and lands them: a copy for allgather, alltoall and broadcast, and for
+reduce-scatter and reduce the float32 add of
+`repro_torch.kernels.chunk_accum_indexed` (the comm's `accumulate`).
 Ranks that receive nothing in a call take no part in it.  bf16/f16 inputs
 are reduced in float32 (the whole buffer is upcast before the rounds, so
 payloads travel in float32), as in the reference.
@@ -252,6 +254,116 @@ def tree_reduce_scatter(x: torch.Tensor, prog: PermuteProgram, comm, *,
                         for i, r in enumerate(comm.ranks)])
     out = mine.reshape(n, s * ce)[:, :shard_elems]
     return comm.unlocal(out.reshape((n,) + shard_shape).to(x.dtype))
+
+
+# ---------------------------------------------------------------------- #
+# alltoall (per-source pruned scatter over the packed spanning trees)
+# ---------------------------------------------------------------------- #
+
+def tree_all_to_all(x: torch.Tensor, prog: PermuteProgram, comm
+                    ) -> torch.Tensor:
+    """Bandwidth-optimal pipelined all-to-all of each rank's destination
+    blocks.
+
+    Each rank's `x` is [A, *block]: ``x[w]`` is its block for destination
+    ``w``.  Returns [A, *block] per rank with ``out[r]`` = source r's block
+    for that rank, matching ``jax.lax.all_to_all(x, axis, 0, 0)`` (under
+    `Stacked`, ``x.transpose(0, 1)``).
+
+    Alltoall programs fold the destination into the slot index
+    (slots_per_shard = A·k·P; slot = dest·k·P + subslot), so each source's
+    whole send buffer is staged at rows [me·S, (me+1)·S) in
+    destination-major order, ``kp = S / A`` subslots per block.  The
+    diagonal block never travels: it stays where its rank staged it, and
+    the output reads it back from there.  Source r's block for rank me sits
+    at rows r·S + me·kp + t."""
+    if prog.kind != "alltoall":
+        raise ValueError(f"program kind {prog.kind} != alltoall")
+    a, s = prog.axis_size, prog.slots_per_shard
+    xl = comm.local(x)
+    n = xl.shape[0]
+    if xl.dim() < 2 or xl.shape[1] != a:
+        raise ValueError(f"per-rank leading dim of {tuple(x.shape)} != axis "
+                         f"size {a}")
+    kp = s // a                       # subslots per destination block (k·P)
+    block_shape = xl.shape[2:]
+    block_elems = math.prod(block_shape)
+    ce = _chunk_elems(block_elems, kp)
+    flat = xl.reshape(n, a, block_elems)
+    if kp * ce != block_elems:        # each block padded to its kp chunks
+        flat = torch.nn.functional.pad(flat, (0, kp * ce - block_elems))
+    buf = torch.zeros((n, a * s + 1, ce), dtype=x.dtype, device=x.device)
+    _stage(buf, flat.reshape(n, s * ce), comm, s)
+    buf = _run_program(buf, prog, comm, "set")
+    rows = buf[:, :a * s].view(n, a, a, kp * ce)     # [n, src, dest, block]
+    out = torch.stack([rows[i, :, r] for i, r in enumerate(comm.ranks)])
+    out = out[:, :, :block_elems].reshape((n, a) + block_shape)
+    return comm.unlocal(out)
+
+
+# ---------------------------------------------------------------------- #
+# broadcast / reduce (paper Appendix A and its edge-reversed dual)
+# ---------------------------------------------------------------------- #
+
+def _stage_root(buf: torch.Tensor, flat: torch.Tensor, root: int,
+                s: int) -> None:
+    """Every local rank's own copy, flat [local, elems], into the head of
+    the root's rows [root * S, (root + 1) * S); only the root's is ever
+    forwarded."""
+    n, elems = flat.shape
+    buf[:, root * s:(root + 1) * s].view(n, -1)[:, :elems] = flat
+
+
+def _root_rows(buf: torch.Tensor, x_local: torch.Tensor, root: int,
+               s: int) -> torch.Tensor:
+    n = buf.shape[0]
+    elems = math.prod(x_local.shape[1:])
+    out = buf[:, root * s:(root + 1) * s].view(n, -1)[:, :elems]
+    return out.reshape(x_local.shape)
+
+
+def tree_broadcast(x: torch.Tensor, prog: PermuteProgram, comm
+                   ) -> torch.Tensor:
+    """Bandwidth-optimal pipelined broadcast of the root's buffer `x`.
+
+    Every rank passes an `x` of the same shape (non-root values are
+    ignored, as in MPI_Bcast); every rank returns the root's `x`.  A rank
+    only ever sends chunks it received, so non-root data never travels."""
+    if prog.kind != "broadcast":
+        raise ValueError(f"program kind {prog.kind} != broadcast")
+    a, s, root = prog.axis_size, prog.slots_per_shard, prog.root
+    xl = comm.local(x)
+    n = xl.shape[0]
+    ce = _chunk_elems(math.prod(xl.shape[1:]), s)
+    buf = torch.zeros((n, a * s + 1, ce), dtype=x.dtype, device=x.device)
+    _stage_root(buf, xl.reshape(n, -1), root, s)
+    buf = _run_program(buf, prog, comm, "set")
+    return comm.unlocal(_root_rows(buf, xl, root, s))
+
+
+def tree_reduce(x: torch.Tensor, prog: PermuteProgram, comm, *,
+                accum_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Bandwidth-optimal pipelined reduce (sum) of `x` to the root.
+
+    Every rank contributes its `x`; the result is the sum over ranks on the
+    root and an intermediate partial elsewhere (MPI_Reduce semantics).
+    Each hop adds the incoming partial into its own (the comm's
+    `accumulate`: `chunk_accum` on the card), in float32 for bf16/f16
+    inputs, so a rank forwards one partial per chunk slot."""
+    if prog.kind != "reduce":
+        raise ValueError(f"program kind {prog.kind} != reduce")
+    a, s, root = prog.axis_size, prog.slots_per_shard, prog.root
+    xl = comm.local(x)
+    n = xl.shape[0]
+    ce = _chunk_elems(math.prod(xl.shape[1:]), s)
+    compute_dtype = accum_dtype or (
+        torch.float32 if x.dtype in (torch.bfloat16, torch.float16)
+        else x.dtype)
+    buf = torch.zeros((n, a * s + 1, ce), dtype=compute_dtype,
+                      device=x.device)
+    _stage_root(buf, xl.reshape(n, -1), root, s)
+    buf = _run_program(buf, prog, comm, "add")
+    return comm.unlocal(_root_rows(buf, xl, root, s).to(x.dtype))
 
 
 # ---------------------------------------------------------------------- #

@@ -9,8 +9,9 @@ spec form — ``CollectiveContext({'data': 8}, topologies={'data': 'dgx:8'})``.
 Programs are kept per (axis, kind) in memory; a facade with an on-disk
 `repro_torch.cache.ScheduleCache` also skips compilation across launches.
 `hot_swap` repairs every program of the axes a link fault touches.  The
-broadcast and alltoall programs are lowered here, but their executors wait
-for later slices (ROADMAP.md queue A, items A2, A4).
+broadcast and alltoall programs run through `tree_broadcast` and
+`tree_all_to_all` (the latter carries expert-parallel MoE dispatch,
+`repro_torch.models.moe.moe_forward_alltoall`).
 """
 from __future__ import annotations
 

@@ -1,15 +1,17 @@
 """Carry weights across from the JAX reference.
 
 `from_jax_params(cfg, tree)` takes the reference's LM param pytree (the
-dense family's `init_lm`, `init_ssm_lm` or `init_hybrid_lm`) as nested dicts
-of numpy arrays, layers stacked [L, ...], and returns the port's module of
-the config's family with the same weights.  The layers are split; every
-leaf whose port counterpart is an `nn.Linear` (the projections, and the
-untied lm_head) is transposed into its [out, in] layout; every other leaf
-keeps its layout: the embedding [V, d], the norms, Mamba2's conv taps
-[W, C] and its per-head vectors.  Unstacked subtrees (zamba2's one `shared`
-block) are carried across as they are.  The result lies on the card unless
-the caller passes device="cpu".
+dense and moe families' `init_lm`, `init_ssm_lm` or `init_hybrid_lm`) as
+nested dicts of numpy arrays, layers stacked [L, ...], and returns the
+port's module of the config's family with the same weights.  The layers are
+split; every leaf whose port counterpart is an `nn.Linear` (the
+projections, an MoE block's shared expert, and the untied lm_head) is
+transposed into its [out, in] layout; every other leaf keeps its layout:
+the embedding [V, d], the norms, Mamba2's conv taps [W, C] and its per-head
+vectors, and an MoE block's router [d, E], expert tensors [E, d, ff] /
+[E, ff, d] and shared_gate [d, 1].  Unstacked subtrees (zamba2's one
+`shared` block) are carried across as they are.  The result lies on the
+card unless the caller passes device="cpu".
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from .models.common import ModelConfig, resolve_device
 from .models.hybrid import HybridLM, SSMLM
 from .models.transformer import DecoderLM
 
-_MODULES = {"dense": DecoderLM, "ssm": SSMLM, "hybrid": HybridLM}
+_MODULES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": SSMLM,
+            "hybrid": HybridLM}
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -53,8 +56,8 @@ def _entries(prefix: str, tree: Mapping, layer: Optional[int],
 
 def from_jax_params(cfg: ModelConfig, tree: Mapping,
                     device="cuda") -> nn.Module:
-    """The port's DecoderLM, SSMLM or HybridLM with the weights of `tree`,
-    on `device`: the card unless the caller asks for the CPU."""
+    """The port's DecoderLM (dense, moe), SSMLM or HybridLM with the weights
+    of `tree`, on `device`: the card unless the caller asks for the CPU."""
     device = resolve_device(device)
     embed = _tensor(tree["embed"])
     with torch.device("meta"):

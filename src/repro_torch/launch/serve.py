@@ -4,16 +4,19 @@ Counterpart of src/repro/launch/serve.py for --model-parallel 1.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --prompt-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu
 
-Serves the dense family and the ssm (mamba2-780m) and hybrid (zamba2-1.2b)
-families.  Runs on CUDA unless --device cpu is given; without a card it
-raises.  Params are bf16 at full size and fp32 with --reduced.  Prompts
-have random lengths of 4-23 tokens, or --prompt-len each; an ssm or hybrid
-batch whose padded length is a multiple of the config's ssm_chunk (512 for
-mamba2-780m, 256 for zamba2-1.2b, 16 reduced) prefills through the SSD
-kernel, any other through the sequential recurrence.
+Serves the dense family, the moe family (qwen2-moe-a2.7b; mixtral-8x7b's
+93 GB of bf16 weights do not fit one 80 GB card at its full depth), and
+the ssm (mamba2-780m) and hybrid (zamba2-1.2b) families.  Runs on CUDA
+unless --device cpu is given; without a card it raises.  Params are bf16
+at full size and fp32 with --reduced.  Prompts have random lengths of 4-23
+tokens, or --prompt-len each; an ssm or hybrid batch whose padded length is
+a multiple of the config's ssm_chunk (512 for mamba2-780m, 256 for
+zamba2-1.2b, 16 reduced) prefills through the SSD kernel, any other
+through the sequential recurrence.
 """
 from __future__ import annotations
 

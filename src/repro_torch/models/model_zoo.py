@@ -1,5 +1,6 @@
 """Uniform Model interface; the port trains and serves the dense family and
-serves the ssm (mamba2) and hybrid (zamba2) families.
+serves the moe (qwen2-moe, mixtral), ssm (mamba2) and hybrid (zamba2)
+families.
 Counterpart of src/repro/models/model_zoo.py.
 
     model = build_model(cfg, remat=True)
@@ -9,8 +10,10 @@ Counterpart of src/repro/models/model_zoo.py.
     state, logits = model.prefill(params, batch, state)
     logits, state = model.decode_step(params, token, state, index)
 
-Decode state is a dict: the KV caches for the dense family, the stacked
-conv and SSM states for ssm, both for hybrid.  The port writes it in place.
+Decode state is a dict: the KV caches for the dense and moe families, the
+stacked conv and SSM states for ssm, both for hybrid.  The port writes it
+in place.  The moe family (and a dense config with experts) takes the dense
+family's path, its layers holding an MoE block in place of the MLP.
 """
 from __future__ import annotations
 
@@ -25,10 +28,10 @@ from .common import ModelConfig, resolve_device
 
 # what waits for later slices (ROADMAP.md queue A)
 _NOT_PORTED = {
-    "moe": "A4 (MoE)",
     "vlm": "A5 (other model families)",
     "audio": "A5 (other model families)",
 }
+_LOSS_NOT_PORTED = {"ssm": "A10", "hybrid": "A10"}
 
 
 @dataclasses.dataclass
@@ -41,17 +44,23 @@ class Model:
         """Random weights from a generator seeded with `seed` on `device`."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        init = {"dense": transformer.init_lm, "ssm": hybrid.init_ssm_lm,
+        init = {"dense": transformer.init_lm, "moe": transformer.init_lm,
+                "ssm": hybrid.init_ssm_lm,
                 "hybrid": hybrid.init_hybrid_lm}[self.cfg.family]
         return init(self.cfg, gen, dtype, device)
 
     def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(total loss, token loss) of a batch with tokens [B, S]."""
-        if self.cfg.family != "dense":
+        cfg = self.cfg
+        # MoE training (the moe family and dense configs with experts) adds
+        # 0.01 * the layers' aux loss: a later slice
+        item = "A4b" if cfg.num_experts else _LOSS_NOT_PORTED.get(cfg.family)
+        if item:
             raise NotImplementedError(
-                f"{self.cfg.name}: training of family {self.cfg.family!r} is "
-                "not ported yet (ROADMAP.md queue A, item A10)")
+                f"{cfg.name}: training of family {cfg.family!r}"
+                f"{' with experts' if cfg.num_experts else ''} is not ported "
+                f"yet (ROADMAP.md queue A, item {item})")
         return transformer.lm_loss(params, self.cfg, batch, remat=self.remat)
 
     def init_decode_state(self, batch_size: int, max_len: int,
@@ -108,10 +117,6 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, remat: bool = False) -> Model:
-    if cfg.family == "dense" and cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: dense configs with experts are not ported yet "
-            f"(ROADMAP.md queue A, item {_NOT_PORTED['moe']})")
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "

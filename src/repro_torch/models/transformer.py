@@ -15,7 +15,7 @@ the recomputation, which runs after the outer swap has ended.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +25,7 @@ from .attention import (Attention, MaskSpec, attention_forward,
                         init_attention, ring_positions)
 from .common import ModelConfig, dense_init, resolve_device, rms_norm, softcap
 from .mlp import MLP, init_mlp, mlp_forward
+from .moe import MoE, init_moe, moe_forward
 
 Caches = Tuple[torch.Tensor, torch.Tensor]
 
@@ -51,7 +52,10 @@ class DecoderLayer(_Applied):
         self.ln_attn = _norm(d, dtype, device)
         self.attn = Attention(cfg, dtype, device)
         self.ln_mlp = _norm(d, dtype, device)
-        self.mlp = MLP(d, cfg.d_ff, dtype, device, cfg.mlp_variant)
+        if cfg.num_experts:
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(d, cfg.d_ff, dtype, device, cfg.mlp_variant)
         if cfg.sandwich_norm:
             self.ln_attn_post = _norm(d, dtype, device)
             self.ln_mlp_post = _norm(d, dtype, device)
@@ -61,7 +65,10 @@ class DecoderLayer(_Applied):
 def init_decoder_layer(p: DecoderLayer, cfg: ModelConfig,
                        generator: torch.Generator) -> None:
     init_attention(p.attn, cfg, generator)
-    init_mlp(p.mlp, generator)
+    if cfg.num_experts:
+        init_moe(p.moe, cfg, generator)
+    else:
+        init_mlp(p.mlp, generator)
     for w in p.parameters(recurse=False):   # the norms
         w.zero_()
 
@@ -71,8 +78,9 @@ def decoder_layer(p: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
                   cache: Optional[Caches] = None,
                   cache_index: Optional[int] = None,
                   cache_positions: Optional[torch.Tensor] = None,
-                  ) -> Tuple[torch.Tensor, Optional[Caches]]:
-    """Returns (h, new_cache)."""
+                  ) -> Tuple[torch.Tensor, Optional[Caches], Any]:
+    """Returns (h, new_cache, moe_aux): the aux is the MoE layer's float32
+    load-balancing loss, 0.0 for a dense layer."""
     attn_in = rms_norm(h, p.ln_attn, cfg.norm_eps)
     attn_out, new_cache = attention_forward(
         p.attn, cfg, attn_in, positions, spec,
@@ -83,10 +91,14 @@ def decoder_layer(p: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
         attn_out = rms_norm(attn_out, p.ln_attn_post, cfg.norm_eps)
     h = h + attn_out
     mlp_in = rms_norm(h, p.ln_mlp, cfg.norm_eps)
-    mlp_out = mlp_forward(p.mlp, mlp_in, cfg.activation)
+    aux = 0.0
+    if cfg.num_experts:
+        mlp_out, aux = moe_forward(p.moe, cfg, mlp_in)
+    else:
+        mlp_out = mlp_forward(p.mlp, mlp_in, cfg.activation)
     if cfg.sandwich_norm:
         mlp_out = rms_norm(mlp_out, p.ln_mlp_post, cfg.norm_eps)
-    return h + mlp_out, new_cache
+    return h + mlp_out, new_cache, aux
 
 
 # ---------------------------------------------------------------------- #
@@ -141,13 +153,14 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 
 def _layer_output(layer: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
                   positions: Optional[torch.Tensor], spec: MaskSpec
-                  ) -> torch.Tensor:
-    return decoder_layer(layer, cfg, h, positions, spec)[0]
+                  ) -> Tuple[torch.Tensor, Any]:
+    h, _, aux = decoder_layer(layer, cfg, h, positions, spec)
+    return h, aux
 
 
 def _remat_layer(layer: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
                  positions: Optional[torch.Tensor], spec: MaskSpec
-                 ) -> torch.Tensor:
+                 ) -> Tuple[torch.Tensor, Any]:
     """The layer with only its input saved for backward (the reference's
     `jax.checkpoint` with `nothing_saveable`).  Its weights are checkpoint
     inputs, so the recomputation sees the ones this forward saw."""
@@ -166,10 +179,12 @@ def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
                   cache_index: Optional[int] = None,
                   cache_positions: Optional[torch.Tensor] = None,
                   prefix_len: int = 0, remat: bool = False,
-                  ) -> Tuple[torch.Tensor, Optional[Caches]]:
+                  ) -> Tuple[torch.Tensor, Optional[Caches], Any]:
     """Run the layer stack.  caches: stacked (k, v) [L, B, T, Hkv, D],
     written in place.  remat: recompute each layer in backward (training;
-    no caches)."""
+    no caches).  Returns (h, caches, aux): aux sums the layers' MoE
+    load-balancing losses (0.0 for the dense family); serving discards
+    it."""
     specs = layer_specs(cfg)
     if prefix_len:
         specs = tuple(
@@ -177,15 +192,17 @@ def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
             for s in specs)
     if remat and caches is not None:
         raise ValueError("remat is for training, which runs without caches")
+    aux_sum = 0.0
     for i, layer in enumerate(params.layers):
         spec = specs[i % len(specs)]
         if remat:
-            h = _remat_layer(layer, cfg, h, positions, spec)
-            continue
-        cache = None if caches is None else (caches[0][i], caches[1][i])
-        h, _ = decoder_layer(layer, cfg, h, positions, spec,
-                             cache, cache_index, cache_positions)
-    return h, caches
+            h, aux = _remat_layer(layer, cfg, h, positions, spec)
+        else:
+            cache = None if caches is None else (caches[0][i], caches[1][i])
+            h, _, aux = decoder_layer(layer, cfg, h, positions, spec,
+                                      cache, cache_index, cache_positions)
+        aux_sum = aux_sum + aux
+    return h, caches, aux_sum
 
 
 def embed_tokens(params: DecoderLM, cfg: ModelConfig,
@@ -274,8 +291,8 @@ def lm_loss(params: DecoderLM, cfg: ModelConfig,
     here)."""
     tokens = batch["tokens"]
     h = embed_tokens(params, cfg, tokens)
-    h, _ = decoder_stack(params, cfg, h, None, prefix_len=prefix_len,
-                         remat=remat)
+    h, _, _ = decoder_stack(params, cfg, h, None, prefix_len=prefix_len,
+                            remat=remat)
     loss = next_token_loss(params, cfg, h, tokens, batch.get("loss_mask"))
     return loss, loss
 
@@ -311,8 +328,8 @@ def lm_prefill(params: DecoderLM, cfg: ModelConfig, tokens: torch.Tensor,
     0..S-1 by construction, so on CUDA its attention takes the flash
     kernel."""
     h = embed_tokens(params, cfg, tokens)
-    h, caches = decoder_stack(params, cfg, h, None, caches=caches,
-                              cache_index=0, prefix_len=prefix_len)
+    h, caches, _ = decoder_stack(params, cfg, h, None, caches=caches,
+                                 cache_index=0, prefix_len=prefix_len)
     return caches, lm_logits(params, cfg, h[:, -1:])
 
 
@@ -326,7 +343,7 @@ def lm_decode_step(params: DecoderLM, cfg: ModelConfig, token: torch.Tensor,
     h = embed_tokens(params, cfg, token)
     positions = torch.tensor([index], device=token.device)
     clen = caches[0].shape[2]
-    h, caches = decoder_stack(
+    h, caches, _ = decoder_stack(
         params, cfg, h, positions, caches=caches, cache_index=index % clen,
         cache_positions=ring_positions(index, clen, token.device))
     return lm_logits(params, cfg, h), caches

@@ -1,9 +1,10 @@
 """The port's collective layer against the JAX reference on the CPU: the
 schedule compiler copy and its lowering field by field, the chunk_accum plain
 versions against the Pallas kernel (interpret mode) and `.at[].add`, the
-stacked tree collectives bit-equal to the JAX `tree_*` under forced host
-devices, and the P2P form over gloo at world 4 bit-equal to the stacked
-form.
+stacked tree collectives (allgather, reduce-scatter, allreduce, broadcast,
+reduce, alltoall) bit-equal to the JAX `tree_*` under forced host devices,
+and the P2P form over gloo at world 4 bit-equal to the stacked form (and
+its alltoall to `dist.all_to_all_single`).
 
 Every comparison here is exact: the schedules are integer tables, and the
 collectives add the same float32 values in the same order."""
@@ -27,10 +28,12 @@ from repro_torch.api import Collectives
 from repro_torch.comms import (BucketedAllReduce, CollectiveContext, Stacked,
                                compressed_all_reduce, partition_buckets,
                                tree_all_gather, tree_all_reduce,
+                               tree_all_to_all, tree_broadcast, tree_reduce,
                                tree_reduce_scatter)
 from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, build, chunk_accum,
                                  chunk_accum_indexed)
 from repro_torch.kernels.chunk_accum import ARGTYPES
+from repro_torch.models import moe as tmoe
 from repro_torch.topo import axis_topology_for_mesh
 
 torch.set_num_threads(1)
@@ -105,13 +108,26 @@ def test_pair_equals_the_reference(spec):
 
 
 def test_facade_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A2"):
-        Collectives().executable("bring:8", kind="broadcast",
-                                 comm=Stacked(8))
-    x = torch.randn(8, 5)
-    fn = Collectives().executable("bring:8", kind="allreduce",
-                                  comm=Stacked(8))
-    torch.testing.assert_close(fn(x), x.sum(0).expand(8, 5))
+    """Every kind the compiler emits has an executor over Stacked(8): each
+    returned callable computes its collective; only an unknown kind is
+    refused."""
+    cc, comm = Collectives(), Stacked(8)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 16, 5, generator=g)
+
+    def run(kind, v, **kw):
+        return cc.executable("bring:8", kind=kind, comm=comm, **kw)(v)
+    torch.testing.assert_close(run("allreduce", x), x.sum(0).expand(8, 16, 5))
+    assert torch.equal(run("allgather", x), x[None].expand(8, 8, 16, 5))
+    torch.testing.assert_close(run("reduce_scatter", x),
+                               x.sum(0).view(8, 2, 5))
+    assert torch.equal(run("broadcast", x, root=3), x[3].expand(8, 16, 5))
+    torch.testing.assert_close(run("reduce", x, root=3)[3], x.sum(0))
+    blocks = torch.randn(8, 8, 3, generator=g)
+    assert torch.equal(run("alltoall", blocks, num_chunks=1),
+                       blocks.transpose(0, 1))
+    with pytest.raises(ValueError):
+        cc.executable("bring:8", kind="gather", comm=comm)
 
 
 def test_context_uses_the_reference_axis_model_and_overrides():
@@ -218,9 +234,13 @@ TREE_SPECS = ["bring:8", "fig1a", "bring:4"]
 DTYPES = ["float32", "bfloat16"]
 # (spec, dtype, functions): bf16 allgather is a pure copy, held by the bf16
 # allreduce's gather; fig1a (a switched fabric) runs in f32 only
+# the rooted kinds (broadcast, reduce) at roots 0 and 3, and the alltoall,
+# over every spec in both dtypes
+ROOTED = "bc0 bc3 rd0 rd3 a2a"
 TREE_CASES = ([(spec, "float32", "rs ag ar") for spec in TREE_SPECS]
               + [(spec, "bfloat16", "rs ar") for spec in ("bring:8",
-                                                          "bring:4")])
+                                                          "bring:4")]
+              + [(spec, dt, ROOTED) for spec in TREE_SPECS for dt in DTYPES])
 
 JAX_TREE = """
 import sys
@@ -232,7 +252,8 @@ except ImportError:  # older jax: experimental namespace
     from jax.experimental.shard_map import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 from repro.api import Collectives
-from repro.comms import tree_all_gather, tree_all_reduce, tree_reduce_scatter
+from repro.comms import (tree_all_gather, tree_all_reduce, tree_all_to_all,
+                         tree_broadcast, tree_reduce, tree_reduce_scatter)
 from repro.comms.collectives import tree_all_reduce_multi
 
 data = np.load(sys.argv[1])
@@ -243,11 +264,19 @@ for case in sys.argv[3].split(";"):
     rs = cc.program(spec, kind="reduce_scatter")
     ag = cc.program(spec, kind="allgather")
     rs_ar, ag_ar = cc.program(spec, kind="allreduce")
+    bc = {r: cc.program(spec, kind="broadcast", root=r) for r in (0, 3)}
+    rd = {r: cc.program(spec, kind="reduce", root=r) for r in (0, 3)}
+    a2a = cc.program(spec, kind="alltoall", num_chunks=1)
     a = rs.axis_size
     mesh = Mesh(np.array(jax.devices()[:a]), ("x",))
     fns = {"rs": lambda v: tree_reduce_scatter(v[0], rs, "x")[None],
            "ag": lambda v: tree_all_gather(v[0], ag, "x")[None],
-           "ar": lambda v: tree_all_reduce(v[0], rs_ar, ag_ar, "x")[None]}
+           "ar": lambda v: tree_all_reduce(v[0], rs_ar, ag_ar, "x")[None],
+           "bc0": lambda v: tree_broadcast(v[0], bc[0], "x")[None],
+           "bc3": lambda v: tree_broadcast(v[0], bc[3], "x")[None],
+           "rd0": lambda v: tree_reduce(v[0], rd[0], "x")[None],
+           "rd3": lambda v: tree_reduce(v[0], rd[3], "x")[None],
+           "a2a": lambda v: tree_all_to_all(v[0], a2a, "x")[None]}
     fn = jax.jit(shard_map(lambda *xs: tuple(fns[k](x) for k, x in
                                              zip(kinds, xs)),
                            mesh=mesh, in_specs=(P("x"),) * len(kinds),
@@ -281,7 +310,9 @@ def _tree_inputs():
     for spec in TREE_SPECS:
         a = Collectives().program(spec, kind="allgather").axis_size
         for k, shape in (("rs", (a, a * 3, 5)), ("ag", (a, 7, 3)),
-                         ("ar", (a, 13, 7))):
+                         ("ar", (a, 13, 7)), ("bc0", (a, 13, 7)),
+                         ("bc3", (a, 9, 5)), ("rd0", (a, 13, 7)),
+                         ("rd3", (a, 9, 5)), ("a2a", (a, a, 3, 5))):
             data[f"{spec}/{k}"] = _bf16_exact(
                 rng.standard_normal(shape).astype(np.float32))
     data["multi"] = _bf16_exact(
@@ -309,25 +340,40 @@ def tree_io(tmp_path_factory):
 
 def _stacked_outputs(spec, dt, data, kinds="rs ag ar"):
     cc = Collectives()
-    rs = cc.program(spec, kind="reduce_scatter")
-    ag = cc.program(spec, kind="allgather")
-    rs_ar, ag_ar = cc.program(spec, kind="allreduce")
-    comm = Stacked(rs.axis_size)
-    x = {k: torch.from_numpy(data[f"{spec}/{k}"]).to(getattr(torch, dt))
-         for k in ("rs", "ag", "ar")}
-    fns = {"rs": lambda: tree_reduce_scatter(x["rs"], rs, comm),
-           "ag": lambda: tree_all_gather(x["ag"], ag, comm),
-           "ar": lambda: tree_all_reduce(x["ar"], rs_ar, ag_ar, comm)}
-    return {k: fns[k]() for k in kinds.split()}
+    progs = {"rs": cc.program(spec, kind="reduce_scatter"),
+             "ag": cc.program(spec, kind="allgather"),
+             "ar": cc.program(spec, kind="allreduce"),
+             "a2a": cc.program(spec, kind="alltoall", num_chunks=1)}
+    for r in (0, 3):
+        progs[f"bc{r}"] = cc.program(spec, kind="broadcast", root=r)
+        progs[f"rd{r}"] = cc.program(spec, kind="reduce", root=r)
+    comm = Stacked(progs["rs"].axis_size)
+    fns = {"rs": tree_reduce_scatter, "ag": tree_all_gather,
+           "ar": lambda v, pr, c: tree_all_reduce(v, *pr, c),
+           "bc0": tree_broadcast, "bc3": tree_broadcast,
+           "rd0": tree_reduce, "rd3": tree_reduce, "a2a": tree_all_to_all}
+    out = {}
+    for k in kinds.split():
+        x = torch.from_numpy(data[f"{spec}/{k}"]).to(getattr(torch, dt))
+        out[k] = fns[k](x, progs[k], comm)
+    return out
 
 
 @pytest.mark.parametrize("spec,dt,kinds", TREE_CASES)
 def test_stacked_tree_collectives_bit_equal_jax(tree_io, spec, dt, kinds):
+    """A reduce is compared on its root, where MPI_Reduce defines it."""
     data, ref = tree_io
     for k, y in _stacked_outputs(spec, dt, data, kinds).items():
         assert y.dtype == getattr(torch, dt)
-        np.testing.assert_array_equal(y.float().numpy(),
-                                      ref[f"{spec}/{dt}/{k}"], err_msg=k)
+        want = ref[f"{spec}/{dt}/{k}"]
+        got = y.float().numpy()
+        if k.startswith("rd"):
+            root = int(k[2:])
+            got, want = got[root], want[root]
+            np.testing.assert_allclose(got, data[f"{spec}/{k}"].sum(0),
+                                       rtol=0, atol=1e-5 if dt == "float32"
+                                       else 0.1)
+        np.testing.assert_array_equal(got, want, err_msg=k)
 
 
 def test_stacked_allreduce_close_to_the_sum():
@@ -371,7 +417,27 @@ def test_bucketed_and_compressed_allreduce_stacked():
 # P2P over gloo at world 4 vs the stacked form
 # ---------------------------------------------------------------------- #
 
-P2P_SCRIPT = textwrap.dedent("""
+# the expert-parallel MoE layer that the P2P workers and the stacked form
+# both build (same seed, same weights)
+MOE_HELPERS = textwrap.dedent("""
+    import torch
+
+    def moe_config():
+        from repro_torch.models.common import ModelConfig
+        return ModelConfig(name="t", family="moe", num_layers=1, d_model=16,
+                           num_heads=2, num_kv_heads=2, d_ff=32,
+                           vocab_size=64, num_experts=8,
+                           num_experts_per_tok=2, moe_d_ff=24,
+                           num_shared_experts=1, capacity_factor=2.0)
+
+    def moe_layer(cfg):
+        from repro_torch.models import moe
+        layer = moe.MoE(cfg)
+        moe.init_moe(layer, cfg, torch.Generator().manual_seed(0))
+        return layer
+""")
+
+P2P_SCRIPT = MOE_HELPERS + textwrap.dedent("""
     import os, sys
     import numpy as np
     import torch
@@ -382,17 +448,25 @@ P2P_SCRIPT = textwrap.dedent("""
         torch.set_num_threads(1)
         dist.init_process_group("gloo", world_size=4, rank=rank,
                                 init_method=f"tcp://localhost:{port}")
+        import functools
         from repro_torch.api import Collectives
         from repro_torch.comms import (P2P, BucketedAllReduce,
                                        tree_all_gather, tree_all_reduce,
                                        tree_all_reduce_multi,
-                                       tree_reduce_scatter)
+                                       tree_all_to_all, tree_broadcast,
+                                       tree_reduce, tree_reduce_scatter)
+        from repro_torch.models import moe
         data = np.load(inp)
         cc = Collectives()
         rs = cc.program("bring:4", kind="reduce_scatter")
         ag = cc.program("bring:4", kind="allgather")
         rs_ar, ag_ar = cc.program("bring:4", kind="allreduce")
         rs2, ag2 = cc.program("bring:2", kind="allreduce")
+        a2a = cc.program("bring:4", kind="alltoall", num_chunks=1)
+        rooted = {f"{k}{r}": (fn, cc.program("bring:4", kind=kind, root=r))
+                  for k, fn, kind in (("bc", tree_broadcast, "broadcast"),
+                                      ("rd", tree_reduce, "reduce"))
+                  for r in (0, 3)}
         comm = P2P()
         # axis a: ranks with the same b index; axis b: the same a index
         ga = [dist.new_group([0, 2]), dist.new_group([1, 3])]
@@ -409,6 +483,23 @@ P2P_SCRIPT = textwrap.dedent("""
             res[f"{dt}/multi"] = tree_all_reduce_multi(
                 torch.from_numpy(data["multi"][rank]).to(getattr(torch, dt)),
                 multi)
+            for k, (fn, prog) in rooted.items():
+                res[f"{dt}/{k}"] = fn(torch.from_numpy(
+                    data[f"bring:4/{k}"][rank]).to(getattr(torch, dt)),
+                    prog, comm)
+            blocks = torch.from_numpy(data["bring:4/a2a"][rank]).to(
+                getattr(torch, dt))
+            res[f"{dt}/a2a"] = tree_all_to_all(blocks, a2a, comm)
+            res[f"{dt}/a2a_single"] = torch.empty_like(blocks)
+            dist.all_to_all_single(res[f"{dt}/a2a_single"], blocks)
+        cfg = moe_config()
+        layer = moe_layer(cfg)
+        x = torch.from_numpy(data["moe_x"][rank])
+        for tag, fn in (("plain", None), ("tree", functools.partial(
+                tree_all_to_all, prog=a2a, comm=comm))):
+            y, aux = moe.moe_forward_alltoall(layer, cfg, x, comm,
+                                              all_to_all=fn)
+            res[f"moe/{tag}/y"], res[f"moe/{tag}/aux"] = y, aux
         grads = {k: torch.from_numpy(data[f"grad/{k}"][rank])
                  for k in ("w1", "w2", "n")}
         for wire in ("none", "bfloat16"):
@@ -418,7 +509,7 @@ P2P_SCRIPT = textwrap.dedent("""
             for k, v in red(grads).items():
                 res[f"bucket/{wire}/{k}"] = v
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
-                 **{k: v.float().numpy() for k, v in res.items()})
+                 **{k: v.detach().float().numpy() for k, v in res.items()})
         dist.destroy_process_group()
 
     if __name__ == "__main__":
@@ -440,6 +531,7 @@ def test_p2p_gloo_world4_bit_equal_stacked(tree_io, tmp_path):
              "w2": torch.randn(4, 50, generator=g),
              "n": torch.randn(4, 7, generator=g)}
     inputs = dict(data, **{f"grad/{k}": v.numpy() for k, v in grads.items()})
+    inputs["moe_x"] = torch.randn(4, 2, 5, 16, generator=g).numpy()
     np.savez(tmp_path / "in.npz", **inputs)
     (tmp_path / "p2p.py").write_text(P2P_SCRIPT)
     out = subprocess.run(
@@ -450,7 +542,9 @@ def test_p2p_gloo_world4_bit_equal_stacked(tree_io, tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
     for dt in DTYPES:
-        stacked = _stacked_outputs("bring:4", dt, data)
+        stacked = _stacked_outputs("bring:4", dt, data,
+                                   "rs ag ar " + ROOTED)
+        stacked["a2a_single"] = stacked["a2a"]
         for k, y in stacked.items():
             for r in range(4):
                 np.testing.assert_array_equal(
@@ -460,6 +554,22 @@ def test_p2p_gloo_world4_bit_equal_stacked(tree_io, tmp_path):
         for r in range(4):
             np.testing.assert_array_equal(ranks[r][f"{dt}/multi"],
                                           ref[f"multi/{dt}"][r])
+    # the expert-parallel MoE layer: under gloo the tree transport is
+    # bit-equal to all_to_all_single, and both agree with the stacked form
+    # to float32 rounding (a rank's matmuls have a quarter of the stacked
+    # rows, so the CPU's BLAS may block them otherwise)
+    mod = {}
+    exec(MOE_HELPERS, mod)
+    cfg = mod["moe_config"]()
+    y, aux = tmoe.moe_forward_alltoall(mod["moe_layer"](cfg), cfg,
+                                       torch.from_numpy(inputs["moe_x"]),
+                                       Stacked(4))
+    for r in range(4):
+        for part, want in (("y", y[r]), ("aux", aux[r])):
+            got = ranks[r][f"moe/plain/{part}"]
+            np.testing.assert_array_equal(ranks[r][f"moe/tree/{part}"], got)
+            np.testing.assert_allclose(got, want.detach().numpy(), rtol=0,
+                                       atol=1e-6)
     rs_ar, ag_ar = Collectives().program("bring:4", kind="allreduce")
     for wire, wdt in (("none", None), ("bfloat16", torch.bfloat16)):
         red = BucketedAllReduce(rs_ar, ag_ar, Stacked(4), bucket_bytes=200,

@@ -2,6 +2,7 @@
 """Trace one batch of the PyTorch port's serving path on the card.
 
     python3 tools/trace_torch_serve.py [--arch mamba2-780m]
+    python3 tools/trace_torch_serve.py --arch qwen2-moe-a2.7b
 
 One model at full width (qwen3-8b unless --arch names another the port
 serves; bf16, random weights from seed 0), one batch of 2 prompts of 1000
@@ -17,8 +18,11 @@ the profiler's own cost), device busy seconds (the sum of kernel and copy
 times, which do not overlap on one stream), the idle share, kernel launches,
 host-to-device copies and syncs per step, the device time, launches and
 share of the busy time of each hand-written kernel (flash attention; the
-SSD intra-chunk kernel with its cum pre-pass), and the kernels that take
-the most device time.  Needs a CUDA card.
+SSD intra-chunk kernel with its cum pre-pass), for a config with experts
+the device time and share of its MoE blocks (`moe_block_*`: routing,
+dispatch, experts, combine, shared expert) and of the three expert
+products within them (`expert_products_*`), and the kernels that take the
+most device time.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -42,11 +46,32 @@ SEED, BATCH, PLEN, NEW_TOKENS, REPEAT = 0, 2, 1000, 16, 10
 # launches
 KERNELS = {"flash": "flash_fwd", "ssd": "ssd_chunk"}
 PRE_PASS = "ssd_chunk_cum"
+# host ranges around the MoE code, whose device time is the time of the
+# kernels launched inside them
+RANGES = {"moe_block": "moe_forward", "expert_products": "moe_expert_ffn"}
+
+
+def _annotate_moe() -> None:
+    """Wrap the MoE block and its expert products in profiler ranges."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe, transformer
+
+    def ranged(fn, name):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+    transformer.moe_forward = ranged(transformer.moe_forward,
+                                     RANGES["moe_block"])
+    moe._expert_ffn = ranged(moe._expert_ffn, RANGES["expert_products"])
 
 
 def _summary(prof, wall_s: float, steps: int) -> dict:
     events = prof.key_averages()
-    on_device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    # kernels and copies; a range's span on the device timeline (a user
+    # annotation) is not device work
+    on_device = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                        and not e.is_user_annotation),
                        key=lambda e: e.self_device_time_total, reverse=True)
     busy_s = sum(e.self_device_time_total for e in on_device) / 1e6
     mine = {}
@@ -58,6 +83,15 @@ def _summary(prof, wall_s: float, steps: int) -> dict:
             f"{name}_launches": sum(e.count for e in found
                                     if PRE_PASS not in e.key),
             f"{name}_share_of_busy": secs / busy_s if busy_s else 0.0})
+    for name, key in RANGES.items():
+        found = [e for e in events
+                 if e.key == key and e.device_type == DeviceType.CPU]
+        if found:
+            secs = sum(e.device_time_total for e in found) / 1e6
+            mine.update({f"{name}_s": secs,
+                         f"{name}_calls": sum(e.count for e in found),
+                         f"{name}_share_of_busy": secs / busy_s
+                         if busy_s else 0.0})
     host = {e.key: e.count for e in events}
     return dict(
         steps=steps, wall_s=wall_s, device_busy_s=busy_s,
@@ -82,6 +116,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
+    if cfg.num_experts:
+        _annotate_moe()
     model = build_model(cfg)
     params = model.init(SEED, torch.bfloat16)
     plen = PLEN
