@@ -166,6 +166,54 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     STACK_ATOL of stack.sum(0); seconds per call and the
                     chunk_accum launches.
 
+27. families_vs_cpu
+                    reduced paligemma-3b and whisper-medium, the same
+                    weights and stub frontend embeddings on the card and on
+                    the CPU: prefill and 4 decode logits agree; flash is
+                    launched once per attention call of the prefill (the
+                    prefix-LM mask; the encoder's and the cross-attention's
+                    non-causal masks, Sq != Skv).
+28. serve_vlm       paligemma-3b at full width (18 layers, d_model 2048, 8
+                    heads over 1 kv head of 256, vocab 257216, ~2.51 B
+                    params, bf16): 4 requests of 256 patch embeddings and
+                    512, 300, 512, 64 text tokens, batch 2, 16 new tokens;
+                    prefill positions/s (patch rows counted), decode
+                    tokens/s, peak memory, eager launches per decoded token;
+                    flash once per layer per batch (36).
+29. serve_audio     whisper-medium at full width (24 + 24 layers, d_model
+                    1024, 16 heads of 64, vocab 51865, ~0.76 B params,
+                    bf16): 4 requests of 1500 frames and decoder prompts of
+                    128, 64, 200, 16 tokens, batch 2, 16 new tokens; the
+                    same numbers and the encoder's seconds apart from the
+                    decoder's prefill; flash 72 times per batch (encoder,
+                    decoder self- and cross-attention; 144), decode on the
+                    direct path.
+30. train_families  `repro_torch.launch.train` 3 steps each, bf16 compute,
+                    fp32 masters, AdamW, remat: mamba2-780m and zamba2-1.2b
+                    at 2 x 1024, paligemma-3b at 2 x (256 + 512), whisper-
+                    medium at 2 x (1500 + 448), all uncut, and
+                    qwen2-moe-a2.7b at full width with 4 of 24 layers
+                    (stated in `reduced`): finite losses, the MoE aux term
+                    (total - token loss), step seconds, tokens/s, peak
+                    memory; no kernel launched (autograd takes the plain
+                    paths; the counts are printed). The supervisor's
+                    checkpoint writes are recorded, not made (phases 9 and
+                    17 measure them).
+31. train_families_vs_cpu
+                    reduced configs of the five families, 2 train steps
+                    from the same weights on the card and on the CPU:
+                    losses and params agree (TRAIN_LOSS_RTOL,
+                    TRAIN_PARAM_ATOL).
+32. families_entry_point
+                    `python -m repro_torch.launch.serve --arch paligemma-3b
+                    --reduced` (and whisper-medium) and `python -m
+                    repro_torch.launch.train --arch <a> --reduced --steps 2`
+                    for the five families, with no --device flag, started
+                    together: each exits 0.
+
+Phase 3 also holds flash against its plain version at the serving shapes
+of the vlm and audio families (FAMILY_FLASH) and times them.
+
 Then the card's line from nvidia-smi, a `kernels` JSON line (each kernel's
 launches on its main path, and per path of the later slices), and as the
 last line {"ok": true, "device": {...}}.
@@ -211,6 +259,13 @@ SSD_MAIN = dict(b=2, s=2048, h=48, p=64, n=128, q=512)
 SSD_ZAMBA2 = dict(b=2, s=1024, h=64, p=64, n=64, q=256)
 MAIN = dict(b=2, h=32, hkv=8, s=1024, d=128)   # qwen3-8b prefill attention
 GRAPH_CALLS = 10              # flash calls per captured graph (phase 3)
+# flash at the serving shapes of the vlm and audio families (phase 3):
+# paligemma-3b's prefill (256 patches + 512 text rows, prefix-LM, MQA, head
+# dim 256), whisper-medium's encoder (1500 frames, non-causal) and its
+# cross-attention (200 decoder rows over 1500 encoder rows)
+FAMILY_FLASH = [((2, 8, 1, 768, 768, 256), dict(causal=True, prefix_len=256)),
+                ((2, 16, 16, 1500, 1500, 64), dict(causal=False)),
+                ((2, 16, 16, 200, 1500, 64), dict(causal=False))]
 DEV = "cuda"
 RANKS = 8                     # data-parallel ranks stacked on the card
 TRAIN_ARGV = ["--arch", "gemma2-2b", "--steps", "3", "--global-batch", "4",
@@ -395,6 +450,8 @@ def phase_kernel_vs_plain(seed: int) -> dict:
     cases = [(shape, dtype, mask) for shape, mask in _flash_cases()
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(shape, dtype, dict(causal=True)) for shape, dtype in main_cases]
+    cases += [(shape, dtype, mask) for shape, mask in FAMILY_FLASH
+              for dtype in (torch.float32, torch.bfloat16)]
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     main_err = 0.0
     failures = []
@@ -456,8 +513,64 @@ def phase_kernel_vs_plain(seed: int) -> dict:
                library_tflops=flops / library_ms / 1e9,
                bound_fraction=bound[bound_by] / kernel_ms,
                fp32_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+    res["family_shapes"] = [_flash_time(gen, shape, mask)
+                            for shape, mask in FAMILY_FLASH]
     emit("kernel_vs_plain", **res)
     return res
+
+
+def _allowed_entries(sq: int, skv: int, causal: bool, prefix_len: int = 0
+                     ) -> int:
+    """Score entries a mask lets through (the kernel skips the others):
+    query row i sees kv rows j <= i, or every row when not causal, and
+    every row j < prefix_len."""
+    if not causal:
+        return sq * skv
+    i = np.arange(sq)
+    return int(np.maximum(np.minimum(i + 1, skv),
+                          min(prefix_len, skv)).sum())
+
+
+def _flash_time(gen, shape, mask: dict) -> dict:
+    """bf16 device time per call (CUDA graph) at a serving shape of the
+    vlm and audio families, beside its bound, its plain version and SDPA
+    (for a prefix mask SDPA takes a boolean mask: a yardstick only)."""
+    from repro_torch.kernels import flash_attention, mha_reference
+    b, h, hkv, sq, skv, d = shape
+    q, k, v = _qkv(gen, *shape, torch.bfloat16)
+    prefix = mask.get("prefix_len", 0)
+    sdpa_kw = dict(enable_gqa=True)
+    if prefix:
+        i, j = torch.arange(sq, device="cuda"), torch.arange(skv,
+                                                             device="cuda")
+        sdpa_kw["attn_mask"] = (j[None] <= i[:, None]) | (j[None] < prefix)
+    else:
+        sdpa_kw["is_causal"] = mask["causal"]
+
+    def kernel():
+        for _ in range(GRAPH_CALLS):
+            flash_attention(q, k, v, **mask)
+
+    def library():
+        for _ in range(GRAPH_CALLS):
+            torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                             **sdpa_kw)
+    err = (flash_attention(q, k, v, **mask).float()
+           - mha_reference(q, k, v, **mask).float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], (shape, mask, err)
+    kernel_ms = graph_ms(kernel, GRAPH_CALLS)
+    library_ms = graph_ms(library, GRAPH_CALLS)
+    plain_ms = cuda_ms(lambda: mha_reference(q, k, v, **mask), iters=5)
+    flops = 4 * b * h * d * _allowed_entries(sq, skv, mask["causal"], prefix)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    bound_by = max(bound, key=bound.get)
+    return dict(shape=list(shape), mask=mask, dtype="bfloat16",
+                max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound[bound_by],
+                bound_by=bound_by, flops=flops, bytes=nbytes,
+                tflops=flops / kernel_ms / 1e9)
 
 
 def _bucket_call(prog, bucket_bytes: int):
@@ -836,7 +949,10 @@ def _train_pair(name: str, seed: int, seq: int, batch: int, steps: int):
     step = make_train_step(model, TrainConfig(optimizer=AdamWConfig(
         lr=1e-3, warmup_steps=10, total_steps=steps)))
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                    global_batch=batch, seed=seed)
+                    global_batch=batch, seed=seed,
+                    num_image_tokens=cfg.num_image_tokens,
+                    encoder_seq=cfg.encoder_seq if cfg.is_encoder_decoder
+                    else 0, d_model=cfg.d_model)
     opt_c, opt_g = init_adamw(cpu), init_adamw(gpu)
     losses, calls = [], []
     for i in range(steps):
@@ -1578,25 +1694,32 @@ class _RouteRecorder:
         return drop, sum(slot.numel() for slot, _ in picked)
 
 
-def _launches_per_decode_token(model, params, prompts, steps: int) -> float:
+def _launches_per_decode_token(model, params, prompts, steps: int,
+                               extras=None) -> float:
     """cudaLaunchKernel calls per decoded token, from torch.profiler over
-    `steps` greedy decode steps of one batch (a count, no timing)."""
+    `steps` greedy decode steps of one batch (a count, no timing).
+    extras: the batch's stacked frontend embeddings, if its family has
+    them."""
     from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    prefix = cfg.num_image_tokens if cfg.family == "vlm" else 0
     plen = max(len(p) for p in prompts)
     toks = np.zeros((len(prompts), plen), np.int64)
     for i, p in enumerate(prompts):
         toks[i, plen - len(p):] = p
     with torch.inference_mode():
-        state = model.init_decode_state(len(prompts), plen + steps + 1,
+        state = model.init_decode_state(len(prompts),
+                                        prefix + plen + steps + 1,
                                         device=DEV)
         state, logits = model.prefill(
-            params, {"tokens": torch.from_numpy(toks).to(DEV)}, state)
+            params, {"tokens": torch.from_numpy(toks).to(DEV),
+                     **(extras or {})}, state)
         tok = logits[:, -1].argmax(-1)[:, None]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(steps):
                 logits, state = model.decode_step(params, tok, state,
-                                                  plen + i)
+                                                  prefix + plen + i)
                 tok = logits[:, -1].argmax(-1)[:, None]
             torch.cuda.synchronize()
     n = {e.key: e.count for e in prof.key_averages()}
@@ -1838,6 +1961,346 @@ def phase_rooted_stacked(seed: int) -> dict:
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------- #
+# every family builds, serves and trains (phases 27-32)
+# ---------------------------------------------------------------------- #
+
+VLM_PROMPTS = (512, 300, 512, 64)      # text tokens; each adds 256 patches
+AUDIO_PROMPTS = (128, 64, 200, 16)     # decoder tokens; each 1500 frames
+# qwen2-moe-a2.7b's fp32 masters, grads and AdamW state at its full 24
+# layers are ~229 GB: it trains at its published width with 4 layers
+MOE_TRAIN_LAYERS = 4
+# (arch, global batch, --seq in text tokens, layers kept or None);
+# sequences are multiples of the SSM chunk (512, 256), so the chunked scan
+TRAIN_FAMILIES = [("mamba2-780m", 2, 1024, None),
+                  ("zamba2-1.2b", 2, 1024, None),
+                  ("paligemma-3b", 2, 512, None),
+                  ("whisper-medium", 2, 448, None),
+                  ("qwen2-moe-a2.7b", 2, 1024, MOE_TRAIN_LAYERS)]
+FAMILY_NAMES = ("mamba2-780m", "zamba2-1.2b", "qwen2-moe-a2.7b",
+                "paligemma-3b", "whisper-medium")
+
+
+def _flash_per_prefill(cfg) -> int:
+    """Flash launches in one prefill: one per attention layer; whisper's
+    encoder layer, decoder self-attention and cross-attention each."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def _stacked_frontend(cfg, seed: int, uids, device, dtype=torch.float32):
+    """The serve launcher's stub frontend output of requests `uids`,
+    stacked into a batch's feed ({} for a family without one)."""
+    from repro_torch.launch.serve import frontend_stub
+    stubs = [frontend_stub(cfg, seed, u) for u in uids]
+    if stubs[0] is None:
+        return {}
+    return {k: torch.from_numpy(np.stack([x[k] for x in stubs])).to(
+        device, dtype) for k in stubs[0]}
+
+
+def phase_families_vs_cpu(seed: int) -> None:
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import FLASH_KERNEL
+    from repro_torch.models import build_model
+    for name in ("paligemma-3b", "whisper-medium"):
+        cfg = reduced_config(name)
+        model = build_model(cfg)
+        cpu = model.init(seed, torch.float32, "cpu")
+        gpu = copy.deepcopy(cpu).to(DEV)
+        rng = np.random.default_rng(seed)
+        b, s = 2, 77
+        prefix = cfg.num_image_tokens if cfg.family == "vlm" else 0
+        max_len = prefix + s + 8
+        tokens = torch.from_numpy(
+            rng.integers(1, cfg.vocab_size, (b, s), dtype=np.int64))
+        extras = _stacked_frontend(cfg, seed, range(b), "cpu")
+        before = FLASH_KERNEL.launches
+        worst = 0.0
+        with torch.inference_mode():
+            sc, lc = model.prefill(cpu, {"tokens": tokens, **extras},
+                                   model.init_decode_state(b, max_len,
+                                                           device="cpu"))
+            sg, lg = model.prefill(
+                gpu, {"tokens": tokens.to(DEV),
+                      **{k: v.to(DEV) for k, v in extras.items()}},
+                model.init_decode_state(b, max_len, device=DEV))
+            launched = FLASH_KERNEL.launches - before
+            for index in range(prefix + s, prefix + s + 4):
+                worst = max(worst, (lg.cpu() - lc).abs().max().item())
+                tok = lc[:, -1].argmax(-1)[:, None]
+                lc, sc = model.decode_step(cpu, tok, sc, index)
+                lg, sg = model.decode_step(gpu, tok.to(DEV), sg, index)
+            worst = max(worst, (lg.cpu() - lc).abs().max().item())
+        assert torch.isfinite(lg).all()
+        assert launched == _flash_per_prefill(cfg) > 0, (name, launched)
+        assert worst <= MODEL_ATOL, (name, worst)
+        emit("families_vs_cpu", arch=name, reduced=True, prompt=[b, s],
+             frontend_rows=prefix or cfg.encoder_seq, decode_steps=4,
+             max_abs_logit_err=worst, atol=MODEL_ATOL,
+             flash_launches_in_prefill=launched)
+
+
+class _DeviceSeconds:
+    """Wraps `module.name` so each call is timed between two
+    synchronisations of the card (adds two syncs per call)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_serve_family(seed: int, name: str, plens, phase: str) -> dict:
+    """Serving path of the vlm or audio family at full width: requests with
+    the stub frontend's embeddings through ServingEngine, batch 2, 16 new
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import FLASH_KERNEL
+    from repro_torch.launch.serve import frontend_stub
+    from repro_torch.models import build_model, encdec
+    from repro_torch.serve import Request, ServingEngine
+    cfg = get_config(name)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed, torch.bfloat16, DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    new_tokens, batch_size = 16, 2
+    engine = ServingEngine(model, params, batch_size=batch_size,
+                           max_len=2048)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, n, dtype=np.int32)
+               for n in plens]
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=i, prompt=p, max_new_tokens=new_tokens,
+                              extras=frontend_stub(cfg, seed, i)))
+    n_batches = -(-len(prompts) // batch_size)
+
+    with _DeviceSeconds(encdec, "encode") as enc:
+        FLASH_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        outs = engine.run()
+        wall_s = time.perf_counter() - t0
+        flash = FLASH_KERNEL.launches
+    assert [o.uid for o in outs] == list(range(len(prompts)))
+    for o, p in zip(outs, prompts):
+        assert o.prompt_len == len(p)
+        assert len(o.tokens) == len(p) + new_tokens
+        assert (o.tokens[:len(p)] == p).all()
+        new = o.tokens[len(p):]
+        assert ((new >= 0) & (new < cfg.vocab_size)).all()
+    # one launch per attention call of each prefill; decode takes the
+    # direct path
+    assert flash == _flash_per_prefill(cfg) * n_batches, (name, flash)
+    assert len(enc.seconds) == (n_batches if cfg.family == "audio" else 0)
+    st = engine.stats
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the first batch's prefill logits: finite, of the expected shape
+    extras = _stacked_frontend(cfg, seed, (0, 1), DEV, torch.bfloat16)
+    prefix = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    with torch.inference_mode():
+        toks = torch.from_numpy(np.stack(
+            [prompts[0], np.pad(prompts[1], (len(prompts[0])
+                                             - len(prompts[1]), 0))]
+        ).astype(np.int64)).to(DEV)
+        _, logits = model.prefill(params, {"tokens": toks, **extras},
+                                  model.init_decode_state(
+                                      2, prefix + len(prompts[0]) + 1,
+                                      device=DEV))
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    launches = _launches_per_decode_token(model, params, prompts[:2], 8,
+                                          extras)
+    frontend = ({"patch_embed": cfg.num_image_tokens} if prefix
+                else {"audio_embed": cfg.encoder_seq})
+    res = dict(arch=name, family=cfg.family, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers or None,
+               d_model=cfg.d_model, heads=[cfg.num_heads, cfg.num_kv_heads],
+               head_dim=cfg.hd, vocab=cfg.vocab_size, reduced=None,
+               dtype="bfloat16", params=n_params, init_s=init_s,
+               frontend_rows_per_request=frontend, prompts=list(plens),
+               batch_size=batch_size, new_tokens=new_tokens,
+               batches=n_batches, wall_s=wall_s,
+               prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+               prefill_positions=st["prefill_tokens"],
+               prefill_positions_count="decoder positions, the vlm's "
+                                       "patch rows included",
+               decode_tokens=st["decode_tokens"],
+               prefill_pos_per_s=st["prefill_tokens"] / st["prefill_s"],
+               decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
+               flash_launches=flash,
+               launches_per_decoded_token=launches,
+               max_memory_allocated_gb=peak_gb,
+               completions=[[int(t) for t in o.tokens[o.prompt_len:]]
+                            for o in outs])
+    if cfg.family == "audio":
+        res.update(encoder_s=enc.seconds,
+                   decoder_prefill_s=st["prefill_s"] - sum(enc.seconds),
+                   encoder_frames_per_s=n_batches * batch_size
+                   * cfg.encoder_seq / sum(enc.seconds),
+                   encoder_timing="each encode between two syncs of the "
+                                  "card, inside prefill_s")
+    emit(phase, **res)
+    del engine, params, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+class _SkipCheckpointWrites:
+    """The supervisor's checkpoint writes recorded, not made: phases 9 and
+    17 measure them; here they would write ~100 GB for nothing."""
+
+    def __enter__(self):
+        from repro_torch.train import checkpoint
+        self.mod, self.orig, self.steps = checkpoint, checkpoint.save_async, []
+        checkpoint.save_async = lambda d, step, tree: self.steps.append(step)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.save_async = self.orig
+
+
+def phase_train_families(seed: int) -> dict:
+    import repro_torch.configs as configs
+    from repro_torch.kernels import CHUNK_ACCUM_KERNEL, FLASH_KERNEL, SSD_KERNEL
+    from repro_torch.launch import train as launch_train
+    kernels = (FLASH_KERNEL, SSD_KERNEL, CHUNK_ACCUM_KERNEL)
+    for k in kernels:
+        k.launches = 0
+    get_config = configs.get_config
+    out = {}
+    for name, batch, seq, layers in TRAIN_FAMILIES:
+        full = get_config(name)
+        cfg = full if layers is None else dataclasses.replace(
+            full, num_layers=layers)
+        argv = ["--arch", name, "--steps", "3", "--global-batch", str(batch),
+                "--seq", str(seq), "--device", DEV, "--seed", str(seed)]
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_families_")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        configs.get_config = lambda n: cfg if n == name else get_config(n)
+        t0 = time.perf_counter()
+        try:
+            keep = {}
+            with _SkipCheckpointWrites() as skipped:
+                records = launch_train.run(launch_train.build_parser()
+                                           .parse_args(argv + ["--ckpt-dir",
+                                                               ckpt]),
+                                           keep=keep)
+            n_params = sum(p.numel() for p in keep["state"][0].parameters())
+            del keep
+        finally:
+            configs.get_config = get_config
+            shutil.rmtree(ckpt, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        losses = [r["loss"] for r in records]
+        assert len(records) == 3 and all(math.isfinite(l) for l in losses), \
+            (name, losses)
+        aux = [r["loss"] - r["token_loss"] for r in records]
+        assert (min(aux) > 0) == bool(cfg.num_experts), (name, aux)
+        frontend = cfg.num_image_tokens or (cfg.encoder_seq
+                                            if cfg.is_encoder_decoder else 0)
+        steady = records[1:]
+        res = dict(arch=name, family=cfg.family, layers=cfg.num_layers,
+                   d_model=cfg.d_model,
+                   reduced=None if layers is None
+                   else {"num_layers": [full.num_layers, layers]},
+                   params=n_params, compute_dtype="bfloat16",
+                   params_dtype="float32", optimizer="AdamW", remat=True,
+                   global_batch=batch, text_tokens=seq,
+                   frontend_rows=frontend, losses=losses,
+                   token_losses=[r["token_loss"] for r in records],
+                   moe_aux_term=aux, step_s=[r["seconds"] for r in records],
+                   steady_text_tok_per_s=sum(r["tokens"] for r in steady)
+                   / sum(r["seconds"] for r in steady),
+                   steady_positions_per_s=batch * (seq + frontend)
+                   * len(steady) / sum(r["seconds"] for r in steady),
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9, wall_s=wall,
+                   checkpoint_writes_skipped_at_steps=skipped.steps)
+        emit("train_families", **res)
+        out[name] = res
+    # under autograd attention and the SSD block take their plain paths;
+    # one rank, no collective
+    out["launches"] = {k.name: k.launches for k in kernels}
+    assert not any(out["launches"].values()), out["launches"]
+    emit("train_families_launches", **out["launches"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_families_vs_cpu(seed: int) -> None:
+    for name in FAMILY_NAMES:
+        t0 = time.perf_counter()
+        cfg, losses, _, cpu, gpu = _train_pair(name, seed, seq=64, batch=4,
+                                               steps=2)
+        assert all(math.isfinite(lg) for _, lg in losses)
+        loss_err, param_err = _train_errs(losses, cpu, gpu)
+        assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
+        assert param_err <= TRAIN_PARAM_ATOL, (name, param_err)
+        emit("train_families_vs_cpu", arch=name, reduced=True, seq=64,
+             global_batch=4, steps=2, max_rel_loss_err=loss_err,
+             loss_rtol=TRAIN_LOSS_RTOL, max_abs_param_err=param_err,
+             param_atol=TRAIN_PARAM_ATOL, seconds=time.perf_counter() - t0)
+
+
+def phase_families_entry_point() -> None:
+    """The launchers with no --device flag, all started together."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    cmds = [["-m", "repro_torch.launch.serve", "--arch", a, "--reduced"]
+            for a in ("paligemma-3b", "whisper-medium")]
+    cmds += [["-m", "repro_torch.launch.train", "--arch", a, "--reduced",
+              "--steps", "2"] for a in FAMILY_NAMES]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for i, cmd in enumerate(cmds):
+            extra = ["--ckpt-dir", os.path.join(tmp, str(i))] \
+                if "repro_torch.launch.train" in cmd else []
+            procs.append(subprocess.Popen(
+                [sys.executable, *cmd, *extra], cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        assert p.returncode == 0, (cmd, err[-3000:])
+        lines = out.splitlines()
+        if "repro_torch.launch.serve" in cmd:
+            assert sum(l.startswith("req ") for l in lines) == 6, out
+        else:
+            assert re.fullmatch(r"done at step 2; stragglers: \d+; link "
+                                r"faults repaired: False", lines[-1]), out
+    emit("families_entry_point",
+         commands=["python " + " ".join(c) for c in cmds],
+         rcs=[p.returncode for p in procs],
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1879,13 +2342,25 @@ def main() -> int:
     phase_moe_entry_point()
     phase_alltoall_stacked(args.seed)
     rooted = phase_rooted_stacked(args.seed)
+    phase_families_vs_cpu(args.seed)
+    vlm = phase_serve_family(args.seed, "paligemma-3b", VLM_PROMPTS,
+                             "serve_vlm")
+    audio = phase_serve_family(args.seed, "whisper-medium", AUDIO_PROMPTS,
+                               "serve_audio")
+    fam_train = phase_train_families(args.seed)
+    phase_train_families_vs_cpu(args.seed)
+    phase_families_entry_point()
     # the later slices' paths, each counted from 0 just before it
     paths = {name: {"train_long": n} for name, n in
              long["kernel_launches"].items()}
     paths["chunk_accum"].update(schedule_cache=cache["launches"],
                                 repair_stacked=repair["launches"],
                                 rooted_stacked=rooted["launches"])
-    paths["flash_attention"].update(serve_moe=moe_serve["flash_launches"])
+    paths["flash_attention"].update(serve_moe=moe_serve["flash_launches"],
+                                    serve_vlm=vlm["flash_launches"],
+                                    serve_audio=audio["flash_launches"])
+    for name, n in fam_train["launches"].items():
+        paths[name]["train_families"] = n
 
     print(smi)
     print(json.dumps({"kernels": [{

@@ -1,11 +1,13 @@
 """Carry weights across from the JAX reference.
 
-`from_jax_params(cfg, tree)` takes the reference's LM param pytree (the
-dense and moe families' `init_lm`, `init_ssm_lm` or `init_hybrid_lm`) as
-nested dicts of numpy arrays, layers stacked [L, ...], and returns the
-port's module of the config's family with the same weights.  The layers are
+`from_jax_params(cfg, tree)` takes the reference's param pytree (the dense,
+moe and vlm families' `init_lm`, `init_encdec`, `init_ssm_lm` or
+`init_hybrid_lm`) as nested dicts of numpy arrays, layers stacked [L, ...],
+and returns the port's module of the config's family with the same weights.
+The stacked `layers` (and whisper's `enc_layers` and `dec_layers`) are
 split; every leaf whose port counterpart is an `nn.Linear` (the
-projections, an MoE block's shared expert, and the untied lm_head) is
+projections, cross-attention's among them, an MoE block's shared expert,
+and the untied lm_head) is
 transposed into its [out, in] layout; every other leaf keeps its layout:
 the embedding [V, d], the norms, Mamba2's conv taps [W, C] and its per-head
 vectors, and an MoE block's router [d, E], expert tensors [E, d, ff] /
@@ -22,11 +24,12 @@ import torch
 from torch import nn
 
 from .models.common import ModelConfig, resolve_device
+from .models.encdec import EncDecLM
 from .models.hybrid import HybridLM, SSMLM
 from .models.transformer import DecoderLM
 
-_MODULES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": SSMLM,
-            "hybrid": HybridLM}
+_MODULES = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
+            "audio": EncDecLM, "ssm": SSMLM, "hybrid": HybridLM}
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -56,18 +59,21 @@ def _entries(prefix: str, tree: Mapping, layer: Optional[int],
 
 def from_jax_params(cfg: ModelConfig, tree: Mapping,
                     device="cuda") -> nn.Module:
-    """The port's DecoderLM (dense, moe), SSMLM or HybridLM with the weights
-    of `tree`, on `device`: the card unless the caller asks for the CPU."""
+    """The port's DecoderLM (dense, moe, vlm), EncDecLM, SSMLM or HybridLM
+    with the weights of `tree`, on `device`: the card unless the caller asks
+    for the CPU."""
     device = resolve_device(device)
     embed = _tensor(tree["embed"])
     with torch.device("meta"):
         p = _MODULES[cfg.family](cfg, embed.dtype)
     targets = set(p.state_dict())
+    stacked = {"layers": cfg.num_layers, "enc_layers": cfg.encoder_layers,
+               "dec_layers": cfg.num_layers}
     sd: Dict[str, torch.Tensor] = {}
     for name, leaf in tree.items():
-        if name == "layers":
-            for i in range(cfg.num_layers):
-                _entries(f"layers.{i}.", leaf, i, targets, sd)
+        if name in stacked:
+            for i in range(stacked[name]):
+                _entries(f"{name}.{i}.", leaf, i, targets, sd)
         elif isinstance(leaf, Mapping):
             _entries(name + ".", leaf, None, targets, sd)
         else:

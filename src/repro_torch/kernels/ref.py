@@ -104,8 +104,10 @@ def ssd_chunk_intra_reference(x: torch.Tensor, dt: torch.Tensor,
     diff = (cum[..., :, None] - cum[..., None, :]).float()
     mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                  device=x.device))
-    ll = torch.where(mask, torch.exp(diff), 0.0)          # a select: exp of
-    # the positive differences above the diagonal may overflow to inf
+    # masked before the exp: the positive differences above the diagonal
+    # may overflow to inf, and under autograd the backward of a select
+    # after the exp would multiply its zero gradient by that inf
+    ll = torch.exp(torch.where(mask, diff, -torch.inf))
     xdt = xf * dtf[..., None]                             # [BH,L,Q,P]
     scores = cf @ bf.transpose(-1, -2)                    # [BH,L,Q,Q]
     y = (scores * ll) @ xdt

@@ -1,13 +1,21 @@
-"""Training entry point: data-parallel training of the dense family with
-gradients carried by the paper's pipeline allreduce or by torch's own, under
-the fault-tolerant supervisor.  Counterpart of src/repro/launch/train.py for
---model-parallel 1.
+"""Training entry point: data-parallel training of every model family
+(dense, moe, vlm, audio, ssm, hybrid) with gradients carried by the paper's
+pipeline allreduce or by torch's own, under the fault-tolerant supervisor.
+Counterpart of src/repro/launch/train.py for --model-parallel 1.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --steps 3 --global-batch 4 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
         --reduced --device cpu --data-parallel 4 --collectives pipeline \
         --schedule-cache /tmp/sc --inject-fault 1:0-1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
+        --reduced --device cpu --steps 2
+
+--seq counts text tokens, as in the reference: a vlm batch adds its
+num_image_tokens patch rows, an audio batch its encoder_seq frames (the
+stub frontends' outputs, `train.data`).  An ssm or hybrid sequence that is
+a multiple of the config's ssm_chunk takes the chunked scan, any other the
+sequential recurrence.
 
 Runs on CUDA unless --device cpu is given; without a card it raises.
 --data-parallel N spawns N ranks with torch.multiprocessing, each with the
@@ -117,8 +125,8 @@ def _rank_main(rank: int, args: argparse.Namespace, port: int) -> None:
 def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
         keep: Optional[dict] = None) -> List[Dict[str, float]]:
     """Train on this rank under the supervisor; returns one record per step
-    run, replays included (step, loss, seconds, tokens of the global
-    batch).  `keep`, if given, receives the final "state"."""
+    run, replays included (step, loss, token loss, seconds, text tokens of
+    the global batch).  `keep`, if given, receives the final "state"."""
     import torch
     import torch.distributed as dist
 
@@ -161,7 +169,10 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
                      compute_dtype=torch.float32 if args.reduced
                      else torch.bfloat16)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                    global_batch=args.global_batch)
+                    global_batch=args.global_batch,
+                    num_image_tokens=cfg.num_image_tokens,
+                    encoder_seq=cfg.encoder_seq if cfg.is_encoder_decoder
+                    else 0, d_model=cfg.d_model)
     live = {}
 
     def build_step() -> None:
@@ -197,7 +208,9 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
         params, opt, metrics = live["step"](*state, batch)
         loss = float(metrics["loss"])           # waits for the step
         seconds = time.perf_counter() - t0
-        records.append(dict(step=step, loss=loss, seconds=seconds,
+        records.append(dict(step=step, loss=loss,
+                            token_loss=float(metrics["token_loss"]),
+                            seconds=seconds,
                             tokens=args.global_batch * args.seq))
         say(f"step {step}: loss {loss:.6f} grad_norm "
             f"{float(metrics['grad_norm']):.4f} ({seconds:.3f} s)",

@@ -74,6 +74,10 @@ class MaskSpec:
         return ok & (kp >= 0)
 
 
+CAUSAL = MaskSpec(causal=True)
+FULL = MaskSpec(causal=False)
+
+
 def ring_positions(index: int, cache_len: int,
                    device: torch.device) -> torch.Tensor:
     """Absolute position held by each row of a (possibly ring-buffer) cache
@@ -250,6 +254,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_forward(
         p: Attention, cfg: ModelConfig, x: torch.Tensor,
         positions: Optional[torch.Tensor], spec: MaskSpec, *,
+        kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         cache_index: Optional[int] = None,
         cache_positions: Optional[torch.Tensor] = None,
@@ -264,19 +269,28 @@ def attention_forward(
       caches), which saves a copy of the cache per layer and step; attention
       runs over the cache with `cache_positions` (defaults to arange) giving
       each row's absolute position for masking.
+    * cross-attention: kv_override = precomputed (k, v) [B,T,Hkv,D], at kv
+      positions 0..T-1; no rope, and q_norm alone under cfg.qk_norm.  Under
+      a FULL mask positions decide nothing, so a prefill passes None and
+      reaches the kernel with Sq != T.
     """
     hd = cfg.hd
     b, s, _ = x.shape
     q = p.wq(x).reshape(b, s, cfg.num_heads, hd)
-    k = p.wk(x).reshape(b, s, cfg.num_kv_heads, hd)
-    v = p.wv(x).reshape(b, s, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    rope_pos = positions if positions is not None \
-        else torch.arange(s, device=x.device)
-    q = apply_rope(q, rope_pos, cfg.rope_theta)
-    k = apply_rope(k, rope_pos, cfg.rope_theta)
+    if kv_override is None:
+        k = p.wk(x).reshape(b, s, cfg.num_kv_heads, hd)
+        v = p.wv(x).reshape(b, s, cfg.num_kv_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, p.q_norm, cfg.norm_eps)
+            k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        rope_pos = positions if positions is not None \
+            else torch.arange(s, device=x.device)
+        q = apply_rope(q, rope_pos, cfg.rope_theta)
+        k = apply_rope(k, rope_pos, cfg.rope_theta)
+    else:
+        k, v = kv_override
+        if cfg.qk_norm:
+            q = rms_norm(q, p.q_norm, cfg.norm_eps)
 
     new_cache = None
     kv_pos = positions
@@ -304,6 +318,8 @@ def attention_forward(
             kv_pos = cache_positions if cache_positions is not None \
                 else torch.arange(clen, device=x.device)
         # prefill (s > 1): attend over the fresh full-length k/v
+    elif kv_override is not None and positions is not None:
+        kv_pos = torch.arange(k.shape[1], device=x.device)
 
     out = attend(q, k.to(q.dtype), v.to(q.dtype), positions, kv_pos, spec,
                  logit_cap)

@@ -1,5 +1,5 @@
 """Hybrid SSM + shared-attention models (Zamba2 family) and the pure-SSM LM
-(Mamba2 family): the serving path.  Counterpart of
+(Mamba2 family): the training loss and the serving path.  Counterpart of
 src/repro/models/hybrid.py.
 
 Zamba2 interleaves Mamba2 layers with a single SHARED transformer block
@@ -13,27 +13,28 @@ stacked over layers (conv [L,B,W-1,C], ssm [L,B,H,P,N]) and the shared
 block's KV caches over sites ([sites,B,T,Hkv,D]); every call writes them in
 place, so they keep their shapes and dtypes from step to step (the
 reference returns new arrays, with the conv state in the activations'
-dtype; the values are the same).  Training of these families is not ported
-yet (ROADMAP.md queue A).
+dtype; the values are the same).  Under `remat` each Mamba2 layer is
+recomputed in the backward pass (`transformer.remat_apply`); the shared
+block is not, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from .attention import Attention, MaskSpec, attention_forward, init_attention
+from .attention import CAUSAL, Attention, attention_forward, init_attention
 from .common import ModelConfig, dense_init, resolve_device, rms_norm
 from .mlp import MLP, init_mlp, mlp_forward
 from .ssm import Mamba2, SSMState, init_mamba2, init_ssm_state, mamba2_forward
-from .transformer import _Applied, _norm, embed_tokens, lm_logits
+from .transformer import (_Applied, _norm, embed_tokens, lm_logits,
+                          next_token_loss, remat_apply)
 
 Caches = Tuple[torch.Tensor, torch.Tensor]
-CAUSAL = MaskSpec(causal=True)
 
 
-class SSMLayer(nn.Module):
+class SSMLayer(_Applied):
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, device=None):
         super().__init__()
         self.ln = _norm(cfg.d_model, dtype, device)
@@ -103,27 +104,53 @@ def init_ssm_lm(cfg: ModelConfig, generator: torch.Generator,
     return _init(SSMLM, cfg, generator, dtype, device)
 
 
+def _ssm_out(layer: SSMLayer, cfg: ModelConfig, h: torch.Tensor
+             ) -> torch.Tensor:
+    """One residual Mamba2 layer from a zero state (training)."""
+    out, _ = mamba2_forward(layer.mamba, cfg,
+                            rms_norm(h, layer.ln, cfg.norm_eps))
+    return h + out
+
+
 def _ssm_layer(layer: SSMLayer, cfg: ModelConfig, h: torch.Tensor,
-               states: Optional[SSMState], i: int) -> torch.Tensor:
+               states: Optional[SSMState], i: int,
+               remat: bool = False) -> torch.Tensor:
     """One residual Mamba2 layer; writes layer i's new state into the
-    stacked `states` in place when given."""
-    st = None if states is None else (states[0][i], states[1][i])
+    stacked `states` in place when given.  remat: recompute the layer in
+    the backward pass (training; no states)."""
+    if states is None:
+        return (remat_apply(layer, _ssm_out, cfg, h) if remat
+                else _ssm_out(layer, cfg, h))
+    if remat:
+        raise ValueError("remat is for training, which runs without states")
     out, (conv, ssm) = mamba2_forward(layer.mamba, cfg,
-                                      rms_norm(h, layer.ln, cfg.norm_eps), st)
-    if states is not None:
-        states[0][i].copy_(conv)
-        states[1][i].copy_(ssm)
+                                      rms_norm(h, layer.ln, cfg.norm_eps),
+                                      (states[0][i], states[1][i]))
+    states[0][i].copy_(conv)
+    states[1][i].copy_(ssm)
     return h + out
 
 
 def ssm_stack(params: SSMLM, cfg: ModelConfig, h: torch.Tensor,
-              states: Optional[SSMState] = None
+              states: Optional[SSMState] = None, remat: bool = False
               ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """states: stacked (conv [L,B,W-1,C], ssm [L,B,H,P,N]) written in place,
-    or None."""
+    or None.  remat: recompute each layer in the backward pass."""
     for i, layer in enumerate(params.layers):
-        h = _ssm_layer(layer, cfg, h, states, i)
+        h = _ssm_layer(layer, cfg, h, states, i, remat)
     return h, states
+
+
+def ssm_lm_loss(params: SSMLM, cfg: ModelConfig,
+                batch: Dict[str, torch.Tensor], remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens [B,S] (+ optional loss_mask).  (loss, loss): no
+    auxiliary term."""
+    tokens = batch["tokens"]
+    h = embed_tokens(params, cfg, tokens)
+    h, _ = ssm_stack(params, cfg, h, remat=remat)
+    loss = next_token_loss(params, cfg, h, tokens, batch.get("loss_mask"))
+    return loss, loss
 
 
 def init_ssm_lm_states(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -175,22 +202,36 @@ def hybrid_stack(params: HybridLM, cfg: ModelConfig, h: torch.Tensor,
                  positions: Optional[torch.Tensor],
                  ssm_states: Optional[SSMState] = None,
                  kv_caches: Optional[Caches] = None,
-                 cache_index: Optional[int] = None
+                 cache_index: Optional[int] = None, remat: bool = False
                  ) -> Tuple[torch.Tensor, Optional[SSMState],
                             Optional[Caches]]:
     """Groups of `hybrid_attn_every` Mamba2 layers with the shared block
     after each group; the L mod every layers left over form an
     attention-free tail.  ssm_states: stacked over all L layers; kv_caches:
-    (k, v) [sites,B,T,Hkv,D]; both written in place."""
+    (k, v) [sites,B,T,Hkv,D]; both written in place.  remat: recompute
+    each Mamba2 layer in the backward pass (not the shared block, as in
+    the reference)."""
     every = cfg.hybrid_attn_every
     for i, layer in enumerate(params.layers):
-        h = _ssm_layer(layer, cfg, h, ssm_states, i)
+        h = _ssm_layer(layer, cfg, h, ssm_states, i, remat)
         site = i // every
         if (i + 1) % every == 0 and site < num_shared_sites(cfg):
             kv = None if kv_caches is None else \
                 (kv_caches[0][site], kv_caches[1][site])
             h = _shared_block(params, cfg, h, positions, kv, cache_index)
     return h, ssm_states, kv_caches
+
+
+def hybrid_lm_loss(params: HybridLM, cfg: ModelConfig,
+                   batch: Dict[str, torch.Tensor], remat: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch: tokens [B,S] (+ optional loss_mask).  (loss, loss).  Positions
+    None: the sequence starts at 0."""
+    tokens = batch["tokens"]
+    h = embed_tokens(params, cfg, tokens)
+    h, _, _ = hybrid_stack(params, cfg, h, None, remat=remat)
+    loss = next_token_loss(params, cfg, h, tokens, batch.get("loss_mask"))
+    return loss, loss
 
 
 def init_hybrid_caches(cfg: ModelConfig, batch: int, max_len: int,

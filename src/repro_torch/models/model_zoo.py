@@ -1,19 +1,23 @@
-"""Uniform Model interface; the port trains and serves the dense family and
-serves the moe (qwen2-moe, mixtral), ssm (mamba2) and hybrid (zamba2)
-families.
-Counterpart of src/repro/models/model_zoo.py.
+"""Uniform Model interface over all six families: dense, moe, vlm
+(paligemma), audio (whisper), ssm (mamba2) and hybrid (zamba2); each
+builds, trains and serves.  Counterpart of src/repro/models/model_zoo.py.
 
     model = build_model(cfg, remat=True)
-    params = model.init(seed, dtype, device)     # DecoderLM, SSMLM or HybridLM
-    loss, token_loss = model.loss(params, batch)         # train (dense)
+    params = model.init(seed, dtype, device)  # DecoderLM, SSMLM, HybridLM
+    loss, token_loss = model.loss(params, batch)         # or EncDecLM
     state = model.init_decode_state(batch, max_len, dtype, device)
     state, logits = model.prefill(params, batch, state)
     logits, state = model.decode_step(params, token, state, index)
 
-Decode state is a dict: the KV caches for the dense and moe families, the
-stacked conv and SSM states for ssm, both for hybrid.  The port writes it
-in place.  The moe family (and a dense config with experts) takes the dense
-family's path, its layers holding an MoE block in place of the MLP.
+A batch holds tokens [B, S], plus patch_embed [B, P, d] for vlm and
+audio_embed [B, T_enc, d] for audio (the stub frontends' outputs).  The
+total loss adds 0.01 * the MoE aux where a config has experts.  Decode
+state is a dict: the KV caches for the dense, moe and vlm families (a vlm
+decode index counts from the first patch), plus the encoder output
+`enc_out` [B, T_enc, d] for audio, the stacked conv and SSM states for ssm,
+both for hybrid.  The port writes caches and states in place.  The moe
+family (and a dense config with experts) takes the dense family's path,
+its layers holding an MoE block in place of the MLP.
 """
 from __future__ import annotations
 
@@ -23,15 +27,8 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from . import hybrid, transformer
+from . import encdec, hybrid, transformer, vlm
 from .common import ModelConfig, resolve_device
-
-# what waits for later slices (ROADMAP.md queue A)
-_NOT_PORTED = {
-    "vlm": "A5 (other model families)",
-    "audio": "A5 (other model families)",
-}
-_LOSS_NOT_PORTED = {"ssm": "A10", "hybrid": "A10"}
 
 
 @dataclasses.dataclass
@@ -45,23 +42,20 @@ class Model:
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         init = {"dense": transformer.init_lm, "moe": transformer.init_lm,
+                "vlm": vlm.init_vlm, "audio": encdec.init_encdec,
                 "ssm": hybrid.init_ssm_lm,
                 "hybrid": hybrid.init_hybrid_lm}[self.cfg.family]
         return init(self.cfg, gen, dtype, device)
 
     def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(total loss, token loss) of a batch with tokens [B, S]."""
-        cfg = self.cfg
-        # MoE training (the moe family and dense configs with experts) adds
-        # 0.01 * the layers' aux loss: a later slice
-        item = "A4b" if cfg.num_experts else _LOSS_NOT_PORTED.get(cfg.family)
-        if item:
-            raise NotImplementedError(
-                f"{cfg.name}: training of family {cfg.family!r}"
-                f"{' with experts' if cfg.num_experts else ''} is not ported "
-                f"yet (ROADMAP.md queue A, item {item})")
-        return transformer.lm_loss(params, self.cfg, batch, remat=self.remat)
+        """(total loss, token loss) of a batch with tokens [B, S] (and the
+        family's frontend embeddings)."""
+        loss = {"dense": transformer.lm_loss, "moe": transformer.lm_loss,
+                "vlm": vlm.vlm_loss, "audio": encdec.encdec_loss,
+                "ssm": hybrid.ssm_lm_loss,
+                "hybrid": hybrid.hybrid_lm_loss}[self.cfg.family]
+        return loss(params, self.cfg, batch, remat=self.remat)
 
     def init_decode_state(self, batch_size: int, max_len: int,
                           dtype=torch.float32, device="cuda"
@@ -74,15 +68,28 @@ class Model:
         if cfg.family == "ssm":
             return {"ssm": hybrid.init_ssm_lm_states(cfg, batch_size, dtype,
                                                      device)}
-        return {"kv": transformer.init_kv_caches(cfg, batch_size, max_len,
-                                                 dtype, device)}
+        kv = transformer.init_kv_caches(cfg, batch_size, max_len, dtype,
+                                        device)
+        if cfg.family == "audio":
+            return {"kv": kv, "enc_out": torch.zeros(
+                (batch_size, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                device=device)}
+        return {"kv": kv}
 
     def prefill(self, params: nn.Module, batch: Dict[str, torch.Tensor],
                 state: Dict[str, Any]
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
-        """The prompt from position 0; returns (state, last-position
-        logits [B,1,V])."""
+        """The prompt from position 0 (for vlm, the patches and then the
+        prompt); returns (state, last-position logits [B,1,V])."""
         cfg, tokens = self.cfg, batch["tokens"]
+        if cfg.family == "vlm":
+            kv, logits = vlm.vlm_prefill(params, cfg, batch["patch_embed"],
+                                         tokens, state["kv"])
+            return {"kv": kv}, logits
+        if cfg.family == "audio":
+            kv, enc_out, logits = encdec.encdec_prefill(
+                params, cfg, batch["audio_embed"], tokens, state["kv"])
+            return {"kv": kv, "enc_out": enc_out}, logits
         if cfg.family == "hybrid":
             h = transformer.embed_tokens(params, cfg, tokens)
             # positions None: 0..S-1, which lets the card take the flash
@@ -103,6 +110,14 @@ class Model:
                     state: Dict[str, Any], index: int
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         cfg = self.cfg
+        if cfg.family == "vlm":
+            logits, kv = vlm.vlm_decode_step(params, cfg, token, state["kv"],
+                                             index)
+            return logits, {"kv": kv}
+        if cfg.family == "audio":
+            logits, kv = encdec.encdec_decode_step(
+                params, cfg, token, state["enc_out"], state["kv"], index)
+            return logits, {"kv": kv, "enc_out": state["enc_out"]}
         if cfg.family == "hybrid":
             logits, ssm, kv = hybrid.hybrid_decode_step(
                 params, cfg, token, state["ssm"], state["kv"], index)
@@ -117,8 +132,4 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, remat: bool = False) -> Model:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md queue A, item {_NOT_PORTED[cfg.family]})")
     return Model(cfg, remat=remat)

@@ -158,19 +158,20 @@ def _layer_output(layer: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
     return h, aux
 
 
-def _remat_layer(layer: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
-                 positions: Optional[torch.Tensor], spec: MaskSpec
-                 ) -> Tuple[torch.Tensor, Any]:
-    """The layer with only its input saved for backward (the reference's
-    `jax.checkpoint` with `nothing_saveable`).  Its weights are checkpoint
-    inputs, so the recomputation sees the ones this forward saw."""
-    names, weights = zip(*layer.named_parameters())
+def remat_apply(module: nn.Module, fn, *args):
+    """fn(module, *args) with only its inputs saved for backward (the
+    reference's `jax.checkpoint` with `nothing_saveable`).  The module must
+    be `_Applied`.  Its weights are checkpoint inputs, swapped in through
+    `torch.func.functional_call`, so the recomputation sees the ones this
+    forward saw, also after an outer swap (the trainer's compute copy) has
+    ended."""
+    names, weights = zip(*module.named_parameters())
+    n = len(args)
 
-    def run(h, *ws):
+    def run(*xs):
         return torch.func.functional_call(
-            layer, dict(zip(names, ws)),
-            (_layer_output, cfg, h, positions, spec))
-    return checkpoint(run, h, *weights, use_reentrant=False)
+            module, dict(zip(names, xs[n:])), (fn, *xs[:n]))
+    return checkpoint(run, *args, *weights, use_reentrant=False)
 
 
 def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
@@ -196,7 +197,8 @@ def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
     for i, layer in enumerate(params.layers):
         spec = specs[i % len(specs)]
         if remat:
-            h, aux = _remat_layer(layer, cfg, h, positions, spec)
+            h, aux = remat_apply(layer, _layer_output, cfg, h, positions,
+                                 spec)
         else:
             cache = None if caches is None else (caches[0][i], caches[1][i])
             h, _, aux = decoder_layer(layer, cfg, h, positions, spec,
@@ -286,15 +288,15 @@ def lm_loss(params: DecoderLM, cfg: ModelConfig,
             batch: Dict[str, torch.Tensor], prefix_len: int = 0,
             remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: tokens [B,S] int (+ optional loss_mask [B,S]).
-    Next-token loss, returned twice as (total, token loss): the dense family
-    has no auxiliary term (the reference adds 0.01 * its MoE aux, zero
-    here)."""
+    Returns (total, token loss): the total adds 0.01 * the layers' summed
+    MoE load-balancing loss (0.0 for the dense family, so the two are
+    equal there), as the reference does."""
     tokens = batch["tokens"]
     h = embed_tokens(params, cfg, tokens)
-    h, _, _ = decoder_stack(params, cfg, h, None, prefix_len=prefix_len,
-                            remat=remat)
+    h, _, aux = decoder_stack(params, cfg, h, None, prefix_len=prefix_len,
+                              remat=remat)
     loss = next_token_loss(params, cfg, h, tokens, batch.get("loss_mask"))
-    return loss, loss
+    return loss + 0.01 * aux, loss
 
 
 # ---------------------------------------------------------------------- #

@@ -8,12 +8,17 @@ both, by family), then one decode step per generated token.  A sequence
 stops at EOS or at its budget.  For the ssm and hybrid families the padded
 length decides the path: a multiple of `cfg.ssm_chunk` takes the chunked
 scan (the SSD kernel on the card), any other the sequential recurrence.
+Requests of the vlm and audio families carry their frontend embeddings in
+`extras` (`patch_embed` [P, d], `audio_embed` [T_enc, d]), stacked into the
+prefill's feed in the weights' dtype; a vlm batch's patches come before its padded prompts, so
+its caches and decode positions count them (pad and all, the pad sits
+between the patches and the text, as in the reference).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ class Request:
     uid: int
     prompt: np.ndarray               # [S] int32
     max_new_tokens: int = 32
+    extras: Optional[Dict[str, np.ndarray]] = None   # patch/audio embeds
 
 
 @dataclasses.dataclass
@@ -42,7 +48,8 @@ class ServingEngine:
     states are in `dtype` (fp32 by default, also when the params are bf16;
     SSM states are always fp32).  `stats` sums, over all batches,
     the seconds spent in prefill and in decode (each ends when the sampled
-    tokens reach the host) and the token positions each processed."""
+    tokens reach the host) and the token positions each processed (a vlm
+    prefill's patch rows included)."""
 
     def __init__(self, model: Model, params: nn.Module, *,
                  batch_size: int = 4, max_len: int = 512, eos_id: int = -1,
@@ -81,16 +88,23 @@ class ServingEngine:
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = r.prompt
 
+        cfg = self.model.cfg
+        prefix = cfg.num_image_tokens if cfg.family == "vlm" else 0
         state = self.model.init_decode_state(
-            bsz, min(self.max_len, plen + budget + 1), self.dtype,
+            bsz, min(self.max_len, plen + prefix + budget + 1), self.dtype,
             self.device)
         feed = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if reqs[0].extras:
+            dtype = self.params.embed.dtype
+            for k in reqs[0].extras:
+                feed[k] = torch.from_numpy(np.stack(
+                    [r.extras[k] for r in reqs])).to(self.device, dtype)
         state, logits = self.model.prefill(self.params, feed, state)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         host_tok = tok.cpu().numpy()
         t1 = time.perf_counter()
         self.stats["prefill_s"] += t1 - t0
-        self.stats["prefill_tokens"] += bsz * plen
+        self.stats["prefill_tokens"] += bsz * (plen + prefix)
 
         out = [list(r.prompt) for r in reqs]
         alive = np.ones(bsz, bool)
@@ -106,7 +120,7 @@ class ServingEngine:
             if not alive.any() or step == budget - 1:
                 break
             logits, state = self.model.decode_step(
-                self.params, tok, state, plen + step)
+                self.params, tok, state, plen + prefix + step)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             host_tok = tok.cpu().numpy()
             self.stats["decode_tokens"] += bsz

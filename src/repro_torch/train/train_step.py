@@ -6,6 +6,8 @@ The parameters are float32 masters.  Each microbatch runs the model through
 `torch.func.functional_call` on a copy of the parameters cast once to the
 compute dtype (`cast_params`), so the gradients land in float32 on the
 masters, as the reference's `cast_params` + `value_and_grad` gives them.
+The batch goes to the parameters' device, its floating-point entries (the
+vlm and audio frontends' embeddings) cast to the compute dtype.
 The `grad_reduce` hook is where data parallelism plugs in: the paper's
 tree-pipeline allreduce (`repro_torch.comms.BucketedAllReduce`) or
 `torch.distributed.all_reduce`.
@@ -54,7 +56,9 @@ def loss_and_grad(model: Model, params: nn.Module,
     loss = torch.zeros((), dtype=torch.float32, device=device)
     tok = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(n):
-        mb = {k: v[i * b // n:(i + 1) * b // n] for k, v in batch.items()}
+        mb = {k: v[i * b // n:(i + 1) * b // n].to(
+                  device, cfg.compute_dtype if v.is_floating_point()
+                  else v.dtype) for k, v in batch.items()}
         cast = cast_params(params, cfg.compute_dtype)
         total, token_loss = torch.func.functional_call(
             params, cast, (model.loss, mb))
