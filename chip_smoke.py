@@ -211,6 +211,31 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     for the five families, with no --device flag, started
                     together: each exits 0.
 
+33. model_parallel_mesh1
+                    the model axis on one card: NCCL at world 1 and a 1 x 1
+                    ("data", "model") mesh.  qwen3-8b at full width served
+                    through `launch.serve.serve` on serve's prompts with
+                    its params placed by `serving_param_specs` as DTensors,
+                    beside the plain path: greedy tokens equal, first-step
+                    logits torch.equal (else within MESH1_LOGITS_ATOL, the
+                    difference printed), flash 36 launches per prefill on
+                    local tensors, prefill positions/s and decode tokens/s
+                    of both; gemma2-2b's two train steps through
+                    `launch.train.run` on the mesh (FSDP+TP placements)
+                    against the plain launch within TRAIN_LOSS_RTOL; the
+                    per-rank bytes of mixtral-8x7b's serving at TP 2 and 4
+                    and qwen3-8b's training state at (2, 2), reckoned on the
+                    meta device.
+34. model_parallel_cards
+                    with two or more cards: mixtral-8x7b at its full 32
+                    layers served over every card (`--model-parallel N`,
+                    the params from model rank 0 by the tree broadcast; with
+                    more than two cards again with `--inject-fault 0-1`),
+                    and `launch.train --arch qwen3-8b --model-parallel 2
+                    --data-parallel N/2 --steps 3`; requests served, finite
+                    losses, tokens/s, step seconds and peak memory per
+                    card.  With one card it prints that it did not run.
+
 Phase 3 also holds flash against its plain version at the serving shapes
 of the vlm and audio families (FAMILY_FLASH) and times them.
 
@@ -2301,6 +2326,280 @@ def phase_families_entry_point() -> None:
          seconds=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------------- #
+# the model axis (phases 33-34)
+# --------------------------------------------------------------------- #
+
+MESH1_TRAIN_STEPS = 2
+CARDS_ARGV: list = []         # flags added to every run of phase 34
+MESH1_LOGITS_ATOL = 2e-2      # bf16, the flash tolerance, if not torch.equal
+RANK_BYTES = [("mixtral-8x7b", {"data": 1, "model": 2}, False),
+              ("mixtral-8x7b", {"data": 1, "model": 4}, False),
+              ("qwen3-8b", {"data": 2, "model": 2}, True)]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _first_logits(model, params, prompts) -> torch.Tensor:
+    """fp32 last-position logits of a prefill of `prompts` (left-padded
+    with 0, as the engine pads), read whole from DTensor params."""
+    from torch.distributed.tensor import DTensor
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    with torch.inference_mode():     # as the engine runs
+        state = model.init_decode_state(len(prompts), plen + 1,
+                                        device=params.embed.device)
+        if isinstance(params.embed, DTensor):
+            from repro_torch.launch.mesh import mesh_axis_sizes
+            from repro_torch.launch.sharding import (decode_state_specs,
+                                                     distribute_tree)
+            mesh = params.embed.device_mesh
+            state = distribute_tree(state, mesh, decode_state_specs(
+                state, model.cfg, mesh_axis_sizes(mesh)))
+        _, logits = model.prefill(params, {"tokens": torch.from_numpy(
+            toks).to(params.embed.device)}, state)
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
+        return logits.float().clone()
+
+
+def _rank_bytes() -> list:
+    """Per-rank bytes of the placements, reckoned on the meta device:
+    serving's bf16 params (TP) and training's fp32 masters + AdamW moments
+    (FSDP+TP, 12 bytes a param)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import _MODULES
+    from repro_torch.launch.sharding import local_bytes, param_specs
+    out = []
+    for name, sizes, fsdp in RANK_BYTES:
+        cfg = get_config(name)
+        with torch.device("meta"):
+            module = _MODULES[cfg.family](cfg, torch.bfloat16)
+        specs = param_specs(module, sizes, fsdp=fsdp)
+        per = 12 if fsdp else 2
+        total = sum(p.numel() for p in module.parameters())
+        local = sum(local_bytes(p.shape, specs[n], sizes, per)
+                    for n, p in module.named_parameters())
+        out.append(dict(arch=name, mesh=sizes, fsdp=fsdp,
+                        bytes_per_param=per, params=total,
+                        whole_gb=total * per / 1e9, per_rank_gb=local / 1e9))
+    return out
+
+
+def phase_model_parallel_mesh1(seed: int) -> dict:
+    """qwen3-8b served and gemma2-2b trained through the placed path on a
+    1 x 1 ("data", "model") mesh (NCCL at world 1, every param a DTensor),
+    each beside the plain path in the same call."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
+                                     SSD_KERNEL)
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    kernels = (FLASH_KERNEL, CHUNK_ACCUM_KERNEL, SSD_KERNEL)
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1, 1, DEV)
+        cfg = get_config("qwen3-8b")
+        model = build_model(cfg)
+        rng = np.random.default_rng(seed)
+        prompts = [rng.integers(1, cfg.vocab_size, n, dtype=np.int32)
+                   for n in SERVE_PROMPTS]
+        args = launch_serve.build_parser().parse_args(
+            ["--arch", cfg.name, "--device", DEV, "--seed", str(seed),
+             "--batch-size", "2", "--new-tokens", "16", "--max-len", "2048"])
+        batches = -(-len(prompts) // args.batch_size)
+        serve = {}
+        for path in ("plain", "mesh"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            engine, done = launch_serve.serve(
+                args, mesh=mesh if path == "mesh" else None, prompts=prompts)
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            st = engine.stats
+            serve[path] = dict(
+                wall_s=wall, launches=launches,
+                prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                prefill_tok_per_s=st["prefill_tokens"] / st["prefill_s"],
+                decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9,
+                tokens=[[int(t) for t in c.tokens[c.prompt_len:]]
+                        for c in done],
+                logits=_first_logits(model, engine.params,
+                                     prompts[:args.batch_size]).cpu())
+            del engine, done
+        for path in serve:      # flash once per layer per prefill, no other
+            assert serve[path]["launches"] == {
+                "flash_attention": cfg.num_layers * batches, "chunk_accum": 0,
+                "ssd_chunk": 0}, (path, serve[path]["launches"])
+        la, lb = serve["plain"].pop("logits"), serve["mesh"].pop("logits")
+        assert torch.isfinite(lb).all()
+        logits_equal = torch.equal(la, lb)
+        logits_err = float((la - lb).abs().max())
+        assert logits_equal or logits_err <= MESH1_LOGITS_ATOL, logits_err
+        assert serve["mesh"]["tokens"] == serve["plain"]["tokens"]
+        torch.cuda.empty_cache()
+
+        train = {}
+        argv = ["--arch", "gemma2-2b", "--steps", str(MESH1_TRAIN_STEPS),
+                "--global-batch", "4", "--seq", "512", "--device", DEV,
+                "--seed", str(seed)]
+        for path in ("plain", "mesh"):
+            ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            try:
+                with _SkipCheckpointWrites():
+                    records = launch_train.run(
+                        launch_train.build_parser().parse_args(
+                            argv + ["--ckpt-dir", ckpt]),
+                        mesh=mesh if path == "mesh" else None)
+            finally:
+                shutil.rmtree(ckpt, ignore_errors=True)
+            train[path] = dict(
+                launches={k.name: k.launches for k in kernels},
+                losses=[r["loss"] for r in records],
+                step_s=[r["seconds"] for r in records],
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9)
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(
+            train["plain"]["losses"], train["mesh"]["losses"]))
+        assert all(math.isfinite(l) for l in train["mesh"]["losses"])
+        # under autograd attention takes the plain path; one rank
+        assert not any(train["mesh"]["launches"].values())
+        assert loss_err <= TRAIN_LOSS_RTOL, loss_err
+    finally:
+        dist.destroy_process_group()
+    res = dict(mesh={"data": 1, "model": 1},
+               backend="nccl" if DEV == "cuda" else "gloo", arch=cfg.name,
+               layers=cfg.num_layers, d_model=cfg.d_model, dtype="bfloat16",
+               prompts=list(SERVE_PROMPTS), batch_size=args.batch_size,
+               new_tokens=args.new_tokens, serve=serve,
+               tokens_equal=True, first_logits_equal=logits_equal,
+               first_logits_max_abs_diff=logits_err,
+               flash_launches_per_prefill=serve["mesh"]["launches"][
+                   "flash_attention"] // batches,
+               train=dict(arch="gemma2-2b", steps=MESH1_TRAIN_STEPS,
+                          global_batch=4, seq=512, max_rel_loss_err=loss_err,
+                          loss_rtol=TRAIN_LOSS_RTOL, **train),
+               rank_bytes=_rank_bytes())
+    emit("model_parallel_mesh1", **res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _mp_rank(rank: int, world: int, port: int, job: str, argv: list,
+             out: str) -> None:
+    """One rank of a launcher's model-parallel run on card `rank`: its
+    per-rank function, then its peak memory and numbers to out/."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    cpu = "cpu" in argv       # a CPU rehearsal (CARDS_ARGV)
+    if not cpu:
+        torch.cuda.set_device(rank)
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=900))
+    peak = (lambda: 0.0) if cpu else torch.cuda.max_memory_allocated
+    try:
+        if not cpu:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if job == "serve":
+            engine, done = launch_serve.serve(
+                launch_serve.build_parser().parse_args(argv), rank, world)
+            st = engine.stats
+            res = dict(requests=len(done),
+                       prefill_tok_per_s=st["prefill_tokens"]
+                       / st["prefill_s"],
+                       decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
+                       new_tokens=[len(c.tokens) - c.prompt_len
+                                   for c in done])
+        else:
+            with _SkipCheckpointWrites():
+                records = launch_train.run(
+                    launch_train.build_parser().parse_args(argv), rank,
+                    world)
+            res = dict(losses=[r["loss"] for r in records],
+                       step_s=[r["seconds"] for r in records],
+                       tokens_per_step=records[0]["tokens"])
+        res.update(rank=rank, wall_s=time.perf_counter() - t0,
+                   max_memory_allocated_gb=peak() / 1e9)
+        with open(os.path.join(out, f"{job}{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_model_parallel_cards(seed: int) -> None:
+    """With two or more cards: mixtral-8x7b served at its full 32 layers
+    over every card (the params from model rank 0 by the tree broadcast,
+    healthy and then over a failed link 0-1), and qwen3-8b trained with
+    --model-parallel 2 --data-parallel cards/2."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("model_parallel_cards", run=False, cards=cards)
+        return
+    import torch.multiprocessing as mp
+    serve_argv = ["--arch", "mixtral-8x7b", "--model-parallel", str(cards),
+                  "--seed", str(seed), "--requests", "4", "--batch-size",
+                  "2", "--new-tokens", "16", "--prompt-len", "512",
+                  "--max-len", "1024"]
+    runs = [("serve", serve_argv)]
+    if cards > 2:   # on a ring of two, link 0-1 is the whole axis
+        runs.append(("serve", serve_argv + ["--inject-fault", "0-1"]))
+    if cards % 2 == 0:
+        runs.append(("train", [
+            "--arch", "qwen3-8b", "--model-parallel", "2", "--data-parallel",
+            str(cards // 2), "--steps", "3", "--global-batch", str(cards),
+            "--seq", "512", "--seed", str(seed), "--ckpt-dir",
+            tempfile.mkdtemp(prefix="chip_smoke_cards_")]))
+    runs = [(job, argv + CARDS_ARGV) for job, argv in runs]
+    for job, argv in runs:
+        with tempfile.TemporaryDirectory() as out:
+            t0 = time.perf_counter()
+            mp.spawn(_mp_rank, args=(cards, _free_port(), job, argv, out),
+                     nprocs=cards, join=True)
+            ranks = []
+            for r in range(cards):
+                with open(os.path.join(out, f"{job}{r}.json")) as f:
+                    ranks.append(json.load(f))
+        if job == "serve":
+            assert all(r["requests"] == 4 for r in ranks)
+        else:
+            shutil.rmtree(argv[argv.index("--ckpt-dir") + 1],
+                          ignore_errors=True)
+            assert all(math.isfinite(l) for l in ranks[0]["losses"])
+        emit("model_parallel_cards", run=True, cards=cards, job=job,
+             argv=argv, seconds=time.perf_counter() - t0, ranks=ranks)
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2350,6 +2649,8 @@ def main() -> int:
     fam_train = phase_train_families(args.seed)
     phase_train_families_vs_cpu(args.seed)
     phase_families_entry_point()
+    mesh1 = phase_model_parallel_mesh1(args.seed)
+    phase_model_parallel_cards(args.seed)
     # the later slices' paths, each counted from 0 just before it
     paths = {name: {"train_long": n} for name, n in
              long["kernel_launches"].items()}
@@ -2361,6 +2662,11 @@ def main() -> int:
                                     serve_audio=audio["flash_launches"])
     for name, n in fam_train["launches"].items():
         paths[name]["train_families"] = n
+    for name in paths:
+        paths[name]["model_parallel_mesh1"] = \
+            mesh1["serve"]["mesh"]["launches"][name]
+        paths[name]["model_parallel_mesh1_train"] = \
+            mesh1["train"]["mesh"]["launches"][name]
 
     print(smi)
     print(json.dumps({"kernels": [{

@@ -1,7 +1,7 @@
-"""Training entry point: data-parallel training of every model family
-(dense, moe, vlm, audio, ssm, hybrid) with gradients carried by the paper's
-pipeline allreduce or by torch's own, under the fault-tolerant supervisor.
-Counterpart of src/repro/launch/train.py for --model-parallel 1.
+"""Training entry point: training of every model family (dense, moe, vlm,
+audio, ssm, hybrid) over a (data, model) mesh, with gradients carried by
+the paper's pipeline allreduce or by torch's own, under the fault-tolerant
+supervisor.  Counterpart of src/repro/launch/train.py.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --steps 3 --global-batch 4 --seq 512
@@ -10,6 +10,8 @@ Counterpart of src/repro/launch/train.py for --model-parallel 1.
         --schedule-cache /tmp/sc --inject-fault 1:0-1
     PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b \
         --reduced --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
+        --reduced --device cpu --data-parallel 2 --model-parallel 2
 
 --seq counts text tokens, as in the reference: a vlm batch adds its
 num_image_tokens patch rows, an audio batch its encoder_seq frames (the
@@ -18,14 +20,22 @@ a multiple of the config's ssm_chunk takes the chunked scan, any other the
 sequential recurrence.
 
 Runs on CUDA unless --device cpu is given; without a card it raises.
---data-parallel N spawns N ranks with torch.multiprocessing, each with the
-same seeded weights and its rows of the global batch: NCCL over N cards
-(N may not exceed the card count), gloo under --device cpu.
---collectives pipeline reduces gradients with a BucketedAllReduce built from
-the data axis's bandwidth-optimal allreduce schedule (a bidirectional ring,
-the reference's axis model); torch uses torch.distributed.all_reduce.  With
-one rank no collective runs.  Params and AdamW state are fp32; compute is
-bf16 at full width and fp32 with --reduced.
+--data-parallel D and --model-parallel M spawn D x M ranks with
+torch.multiprocessing on a (D, M) ("data", "model") mesh: NCCL over D x M
+cards (no more than the card count), gloo under --device cpu.  Each data
+rank draws its rows of the global batch.  --collectives torch (the
+reference's default, its "xla") places params and AdamW state by
+`param_specs(fsdp=True)` as DTensors (FSDP over "data", tensor parallelism
+over "model"), and each gradient comes back reduce-scattered to its
+param's shards; the ssm and hybrid families are not placed (ROADMAP A7c):
+they train at M = 1 only, with whole params on every rank and whole
+gradients all-reduced.
+--collectives pipeline (M = 1 only, as in the reference) keeps whole params
+on every rank and reduces gradients with a BucketedAllReduce built from
+the data axis's bandwidth-optimal allreduce schedule (a bidirectional
+ring, the reference's axis model).  With one rank no collective runs.
+Params and AdamW state are fp32; compute is bf16 at full width and fp32
+with --reduced.
 
 Every step runs under `TrainSupervisor`: a checkpoint every --ckpt-every
 steps and at the end (under --ckpt-dir; each rank of several writes its own
@@ -54,13 +64,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--data-parallel", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--collectives", default="torch",
                     choices=("torch", "pipeline"),
-                    help="torch: torch.distributed.all_reduce.  pipeline: "
+                    help="torch: FSDP+TP placements, gradients "
+                         "reduce-scattered by torch.distributed.  pipeline: "
                          "a BucketedAllReduce over the data axis's "
-                         "bandwidth-optimal allreduce schedule")
+                         "bandwidth-optimal allreduce schedule (requires "
+                         "--model-parallel 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="/tmp/repro_launch_ckpt")
     ap.add_argument("--ckpt-every", type=int, default=25)
@@ -86,49 +99,100 @@ def _free_port() -> int:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    dp = args.data_parallel
+    dp, mp = args.data_parallel, args.model_parallel
     if dp < 1 or args.global_batch % dp:
         raise SystemExit(f"--global-batch {args.global_batch} must split "
                          f"over --data-parallel {dp}")
-    if dp == 1:
+    if mp < 1:
+        raise SystemExit(f"--model-parallel {mp} must be at least 1")
+    if args.collectives == "pipeline" and mp != 1:
+        raise SystemExit("--collectives pipeline requires "
+                         "--model-parallel 1")
+    from repro_torch.configs import get_config, reduced_config
+
+    from .sharding import refuse_unsharded_family
+    refuse_unsharded_family(reduced_config(args.arch) if args.reduced
+                            else get_config(args.arch), mp)
+    world = dp * mp
+    if world == 1:
         run(args)
         return 0
 
     import torch
-    import torch.multiprocessing as mp
+    import torch.multiprocessing as mproc
 
     from repro_torch.models.common import resolve_device
 
     if resolve_device(args.device).type == "cuda" \
-            and dp > torch.cuda.device_count():
-        raise SystemExit(f"--data-parallel {dp} needs {dp} cards, have "
+            and world > torch.cuda.device_count():
+        raise SystemExit(f"--data-parallel {dp} x --model-parallel {mp} "
+                         f"needs {world} cards, have "
                          f"{torch.cuda.device_count()}")
-    mp.spawn(_rank_main, args=(args, _free_port()), nprocs=dp, join=True)
+    mproc.spawn(_rank_main, args=(args, _free_port()), nprocs=world,
+                join=True)
     return 0
 
 
 def _rank_main(rank: int, args: argparse.Namespace, port: int) -> None:
     import torch
     import torch.distributed as dist
+    world = args.data_parallel * args.model_parallel
     backend = "gloo" if args.device == "cpu" else "nccl"
     if backend == "gloo":    # the ranks share the host's cores
-        torch.set_num_threads(max(1, torch.get_num_threads()
-                                  // args.data_parallel))
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            world_size=args.data_parallel, rank=rank)
+                            world_size=world, rank=rank)
     try:
-        run(args, rank, args.data_parallel)
+        run(args, rank, world)
     finally:
         dist.destroy_process_group()
 
 
+def _placed_train_state(model, seed: int, device, mesh):
+    """fp32 master params from `seed`, made one parameter at a time and
+    placed by `param_specs(fsdp=True)`, and AdamW state whose moments
+    carry the same placements (`opt_specs`)."""
+    import torch
+
+    from repro_torch.train import init_adamw
+
+    from .mesh import mesh_axis_sizes
+    from .sharding import param_specs, place, set_parameter
+
+    module, leaves = model.init_leaves(seed, torch.float32, device)
+    specs = param_specs(module, mesh_axis_sizes(mesh), fsdp=True)
+    for name, whole in leaves:
+        set_parameter(module, name, place(whole, mesh, specs[name]))
+        del whole
+    return module, init_adamw(module)
+
+
+def _placed_batch(local: Dict, global_batch: int, mesh) -> Dict:
+    """This data rank's rows as DTensors of `batch_specs`' placements
+    (rows over "data", replicated over "model")."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from .mesh import mesh_axis_sizes
+    from .sharding import batch_specs, to_placements
+
+    shapes = {k: torch.empty((global_batch,) + tuple(v.shape[1:]),
+                             device="meta") for k, v in local.items()}
+    specs = batch_specs(shapes, mesh_axis_sizes(mesh))
+    return {k: DTensor.from_local(v, mesh, to_placements(specs[k], mesh),
+                                  run_check=False)
+            for k, v in local.items()}
+
+
 def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
-        keep: Optional[dict] = None) -> List[Dict[str, float]]:
+        keep: Optional[dict] = None, mesh=None) -> List[Dict[str, float]]:
     """Train on this rank under the supervisor; returns one record per step
     run, replays included (step, loss, token loss, seconds, text tokens of
-    the global batch).  `keep`, if given, receives the final "state"."""
+    the global batch).  `keep`, if given, receives the final "state".
+    With world > 1 under --collectives torch, or a `mesh` given (a
+    ("data", "model") DeviceMesh; a 1 x 1 mesh runs the placed path on one
+    card), params, AdamW state and batch are DTensors."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.api import Collectives
     from repro_torch.comms import P2P, CollectiveContext
@@ -140,6 +204,9 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
                                    host_batch_slice, init_train_state,
                                    make_train_step)
 
+    from .sharding import SHARDED_FAMILIES
+
+    dp, mp = args.data_parallel, args.model_parallel
     device = resolve_device(args.device)
     if device.type == "cuda" and world > 1:
         device = torch.device("cuda", rank)
@@ -147,16 +214,27 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg, remat=True)
-    params, opt = init_train_state(model, args.seed, device)
+    if mesh is None and world > 1 and args.collectives == "torch" \
+            and cfg.family in SHARDED_FAMILIES:
+        from .mesh import make_mesh
+        mesh = make_mesh(dp, mp, device.type)
+    if mesh is not None:
+        from .mesh import mesh_axis_sizes
+        say(f"mesh: {mesh_axis_sizes(mesh)}")
+        params, opt = _placed_train_state(model, args.seed, device, mesh)
+        data_rank = mesh.get_local_rank("data")
+    else:
+        params, opt = init_train_state(model, args.seed, device)
+        data_rank = rank
 
     ctx = None
-    if world == 1:
+    if world == 1 and mesh is None:
         say("data-parallel 1: no collective runs")
     elif args.schedule_cache or args.collectives == "pipeline":
-        # the data axis's programs through the facade: with a cache the
+        # the mesh axes' programs through the facade: with a cache the
         # first launch compiles and persists them, later ones load them
         coll = Collectives(cache=args.schedule_cache or None)
-        ctx = CollectiveContext({"data": world}, collectives=coll)
+        ctx = CollectiveContext({"data": dp, "model": mp}, collectives=coll)
         say(ctx.describe())
         if coll.cache is not None:
             say(coll.cache.describe())
@@ -178,7 +256,8 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
     def build_step() -> None:
         """The train step with its gradient hook: built again after a hot
         swap, since a BucketedAllReduce keeps the programs it was built
-        from."""
+        from.  Placed params need none: their gradients come back
+        reduce-scattered to their shards."""
         grad_reduce = None
         if world > 1 and args.collectives == "pipeline":
             red = ctx.bucketed_allreduce("data", P2P(), wire_dtype=None)
@@ -186,17 +265,19 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
 
             def grad_reduce(tree):
                 return {k: v / world for k, v in red(tree).items()}
-        elif world > 1:
+        elif world > 1 and mesh is None:
+            # the ssm and hybrid families are not placed (ROADMAP A7c):
+            # whole params on every data rank, whole gradients all-reduced
             def grad_reduce(tree):
                 for v in tree.values():
-                    dist.all_reduce(v)
+                    torch.distributed.all_reduce(v)
                 return {k: v / world for k, v in tree.items()}
         live["step"] = make_train_step(model, tc, grad_reduce=grad_reduce)
 
     build_step()
     injector = (FaultInjector.parse(args.inject_fault)
                 if args.inject_fault else None)
-    per = args.global_batch // world
+    per = args.global_batch // dp
     records = []
 
     def step_fn(step, state):
@@ -204,7 +285,9 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
             injector.check(step)
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in host_batch_slice(
-            dc, step, rank * per, (rank + 1) * per).items()}
+            dc, step, data_rank * per, (data_rank + 1) * per).items()}
+        if mesh is not None:
+            batch = _placed_batch(batch, args.global_batch, mesh)
         params, opt, metrics = live["step"](*state, batch)
         loss = float(metrics["loss"])           # waits for the step
         seconds = time.perf_counter() - t0

@@ -18,6 +18,14 @@ evaluated inline.  Three execution paths:
                step recomputed in the backward instead of stored, and only
                the window-adjacent kv blocks visited under a sliding window.
                `BLOCKWISE.calls` counts its calls.
+
+Under tensor parallelism the weights are DTensors on a ("data", "model")
+mesh (repro_torch.launch.sharding) and so are the projections.  Heads are
+split over "model" where their count divides it (`split_heads` gathers a
+projection whose heads do not), and `attend` runs each rank's own heads
+as local tensors (`_attend_sharded`): the kernel sees [B, H/mp, S, D]
+tensors, never a DTensor.  Where the kv heads do not divide "model", each
+rank takes the kv heads its local q heads read under GQA.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import flash_attention_bshd
@@ -215,6 +224,101 @@ def _blockwise_attend(q, k, v, q_pos, kv_pos, spec: MaskSpec,
     return torch.cat(outs, dim=1)[:, :s].to(q.dtype)
 
 
+def split_heads(y: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[B, S, n * hd] -> [B, S, n, hd].  A DTensor sharded on its last dim
+    over a mesh dim that does not divide n is gathered over it first: a
+    shard would cut a head."""
+    if isinstance(y, DTensor):
+        mesh, pl = y.device_mesh, list(y.placements)
+        last = y.dim() - 1
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard) and p.dim in (-1, last) \
+                    and n % mesh.size(i):
+                pl[i] = Replicate()
+        if pl != list(y.placements):
+            y = y.redistribute(mesh, pl)
+    return y.reshape(*y.shape[:-1], n, hd)
+
+
+def _local_kv_heads(k: torch.Tensor, h: int, mp: int, r: int
+                    ) -> torch.Tensor:
+    """The kv heads of a whole [B, T, Hkv, D] that rank r's q heads
+    [r * h / mp, (r + 1) * h / mp) read under GQA (group h / Hkv)."""
+    hkv = k.shape[2]
+    hl, g = h // mp, h // hkv
+    if hl % g == 0:
+        return k[:, :, r * hl // g:(r + 1) * hl // g]
+    if g % hl == 0:
+        lo = r * hl // g
+        return k[:, :, lo:lo + 1]
+    return k.repeat_interleave(g, dim=2)[:, :, r * hl:(r + 1) * hl]
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous: DTensor views the
+    gradient of a local tensor by its global shape, which a transposed
+    local layout (an einsum's backward) does not allow."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _placed(x: DTensor, placements) -> DTensor:
+    """x redistributed to `placements`, or x itself when it has them (a
+    redistribute call costs host time even when it moves nothing)."""
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def _attend_sharded(q, k, v, q_pos, kv_pos, spec: MaskSpec,
+                    logit_cap: Optional[float]) -> torch.Tensor:
+    """`attend` on DTensors q [B,S,H,D], k/v [B,T,Hkv,D]: rows over the
+    batch axes where they divide, heads over "model" where H does (kv
+    heads too where Hkv does; else each rank slices the kv heads its q
+    heads read from the whole kv, whose gradient is then a partial sum).
+    Each rank attends its own rows and heads on local tensors."""
+    mesh = q.device_mesh
+    h, hkv = q.shape[2], k.shape[2]
+    qp, kvp, kv_grad = [], [], []
+    model_rank = None
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if name == "model":
+            if h % n:
+                qp.append(Replicate())
+                kvp.append(Replicate())
+                kv_grad.append(Replicate())
+            elif hkv % n:
+                qp.append(Shard(2))
+                kvp.append(Replicate())
+                kv_grad.append(Partial())
+                model_rank = (mesh.get_local_rank(name), n)
+            else:
+                qp.append(Shard(2))
+                kvp.append(Shard(2))
+                kv_grad.append(Shard(2))
+        else:
+            rows = Shard(0) if q.shape[0] % n == 0 else Replicate()
+            qp.append(rows)
+            kvp.append(rows)
+            kv_grad.append(rows)
+    ql, kl, vl = (_ContiguousGrad.apply(x) for x in (
+        _placed(q, qp).to_local(),
+        _placed(k, kvp).to_local(grad_placements=kv_grad),
+        _placed(v, kvp).to_local(grad_placements=kv_grad)))
+    if model_rank is not None:
+        kl = _local_kv_heads(kl, h, model_rank[1], model_rank[0])
+        vl = _local_kv_heads(vl, h, model_rank[1], model_rank[0])
+    out = attend(ql, kl, vl, q_pos, kv_pos, spec, logit_cap).contiguous()
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: Optional[torch.Tensor], kv_pos: Optional[torch.Tensor],
            spec: MaskSpec, logit_cap: Optional[float] = None
@@ -229,7 +333,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row and column indices as positions: it is reached only with both
     positions None, which callers pass where that holds by construction (a
     prompt processed from its first token).  Explicit positions there
-    raise."""
+    raise.  DTensor inputs run through `_attend_sharded`, which calls this
+    on each rank's local rows and heads."""
+    if isinstance(q, DTensor):
+        return _attend_sharded(q, k, v, q_pos, kv_pos, spec, logit_cap)
     s, t = q.shape[1], k.shape[1]
     needs_grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
@@ -250,6 +357,20 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------- #
 # attention block with optional KV cache
 # ---------------------------------------------------------------------- #
+
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor, at: int) -> None:
+    """cache[:, at:at + n] = rows, in place.  A DTensor cache whose rows
+    are not split is written through its local tensor, with the rows in
+    its placements: a slice at a new index each decode step would miss
+    DTensor's sharding cache."""
+    n = rows.shape[1]
+    if isinstance(cache, DTensor) and not any(
+            isinstance(p, Shard) and p.dim == 1 for p in cache.placements):
+        cache.to_local()[:, at:at + n] = _placed(
+            rows, cache.placements).to_local()
+    else:
+        cache[:, at:at + n] = rows
+
 
 def attention_forward(
         p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -276,10 +397,10 @@ def attention_forward(
     """
     hd = cfg.hd
     b, s, _ = x.shape
-    q = p.wq(x).reshape(b, s, cfg.num_heads, hd)
+    q = split_heads(p.wq(x), cfg.num_heads, hd)
     if kv_override is None:
-        k = p.wk(x).reshape(b, s, cfg.num_kv_heads, hd)
-        v = p.wv(x).reshape(b, s, cfg.num_kv_heads, hd)
+        k = split_heads(p.wk(x), cfg.num_kv_heads, hd)
+        v = split_heads(p.wv(x), cfg.num_kv_heads, hd)
         if cfg.qk_norm:
             q = rms_norm(q, p.q_norm, cfg.norm_eps)
             k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -308,8 +429,8 @@ def attention_forward(
             widx = 0
         n = kw.shape[1]
         widx = min(widx, clen - n)   # the reference's update clamps its start
-        k_cache[:, widx:widx + n] = kw
-        v_cache[:, widx:widx + n] = vw
+        _write_rows(k_cache, kw, widx)
+        _write_rows(v_cache, vw, widx)
         new_cache = (k_cache, v_cache)
         if s == 1:
             # decode: attend over the cache; row positions mask garbage /

@@ -6,6 +6,7 @@ from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -172,15 +173,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # init helpers
 # ---------------------------------------------------------------------- #
 
+_DRAWS: Optional[list] = None
+
+
+@contextlib.contextmanager
+def recorded_draws():
+    """Within it, `dense_init` draws nothing and appends (w, scale) to the
+    list it yields: the order and scales of an init's draws, taken on the
+    meta device (`Model.init_leaves` replays them one leaf at a time)."""
+    global _DRAWS
+    outer, _DRAWS = _DRAWS, []
+    try:
+        yield _DRAWS
+    finally:
+        _DRAWS = outer
+
+
+def draw_normal(shape, scale: float, generator: torch.Generator, device
+                ) -> torch.Tensor:
+    """fp32 normal * scale of `shape` on `device`, as `dense_init` draws."""
+    draw = torch.empty(shape, dtype=torch.float32, device=device)
+    draw.normal_(generator=generator)
+    return draw.mul_(scale)
+
+
 @torch.no_grad()
 def dense_init(w: torch.Tensor, fan_in: int, generator: torch.Generator,
                scale: Optional[float] = None) -> torch.Tensor:
     """Fill w in place with normal * scale (default 1/sqrt(fan_in)), drawn in
     fp32 on w's device and rounded to w's dtype."""
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
-    draw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-    draw.normal_(generator=generator)
-    w.copy_(draw.mul_(scale))
+    if _DRAWS is not None:
+        _DRAWS.append((w, float(scale)))
+        return w
+    w.copy_(draw_normal(w.shape, scale, generator, w.device))
     return w
 
 

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from .attention import (CAUSAL, FULL, Attention, attention_forward,
-                        init_attention)
+                        init_attention, split_heads)
 from .common import ModelConfig, dense_init, resolve_device, rms_norm
 from .mlp import MLP, init_mlp, mlp_forward
 from .transformer import (Caches, _Applied, _norm, embed_tokens, lm_logits,
@@ -142,9 +142,8 @@ def _cross_kv(lp: DecoderLayerXAttn, cfg: ModelConfig, enc_out: torch.Tensor
     """The layer's cross-attention k, v [B, T_enc, Hkv, D]: views of
     contiguous projections, so their rows keep the flash kernel's
     alignment."""
-    b, t, _ = enc_out.shape
-    k = lp.cross_attn.wk(enc_out).reshape(b, t, cfg.num_kv_heads, cfg.hd)
-    v = lp.cross_attn.wv(enc_out).reshape(b, t, cfg.num_kv_heads, cfg.hd)
+    k = split_heads(lp.cross_attn.wk(enc_out), cfg.num_kv_heads, cfg.hd)
+    v = split_heads(lp.cross_attn.wv(enc_out), cfg.num_kv_heads, cfg.hd)
     return k, v
 
 

@@ -18,17 +18,38 @@ decode index counts from the first patch), plus the encoder output
 both for hybrid.  The port writes caches and states in place.  The moe
 family (and a dense config with experts) takes the dense family's path,
 its layers holding an MoE block in place of the MLP.
+
+Params whose leaves are DTensors (tensor parallelism, placed by
+repro_torch.launch.sharding) run through the same functions: each entry
+point then treats plain tensors (tokens, positions, masks, frontend
+embeddings) as replicated over the mesh (`implicit_replication`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Dict, Iterator, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from . import encdec, hybrid, transformer, vlm
-from .common import ModelConfig, resolve_device
+from .common import (ModelConfig, draw_normal, recorded_draws,
+                     resolve_device)
+
+
+def _mixes_dtensors(fn):
+    """Run `fn(self, params, ...)` with plain tensors taken as replicated
+    when the params are DTensors."""
+    @functools.wraps(fn)
+    def run(self, params, *args, **kwargs):
+        sharded = any(isinstance(p, DTensor) for p in params.parameters())
+        with implicit_replication() if sharded else contextlib.nullcontext():
+            return fn(self, params, *args, **kwargs)
+    return run
 
 
 @dataclasses.dataclass
@@ -36,17 +57,55 @@ class Model:
     cfg: ModelConfig
     remat: bool = False          # per-layer activation recomputation
 
+    def _init_fn(self):
+        return {"dense": transformer.init_lm, "moe": transformer.init_lm,
+                "vlm": vlm.init_vlm, "audio": encdec.init_encdec,
+                "ssm": hybrid.init_ssm_lm,
+                "hybrid": hybrid.init_hybrid_lm}[self.cfg.family]
+
     def init(self, seed: int, dtype=torch.float32, device="cuda"
              ) -> nn.Module:
         """Random weights from a generator seeded with `seed` on `device`."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        init = {"dense": transformer.init_lm, "moe": transformer.init_lm,
-                "vlm": vlm.init_vlm, "audio": encdec.init_encdec,
-                "ssm": hybrid.init_ssm_lm,
-                "hybrid": hybrid.init_hybrid_lm}[self.cfg.family]
-        return init(self.cfg, gen, dtype, device)
+        return self._init_fn()(self.cfg, gen, dtype, device)
 
+    def init_leaves(self, seed: int, dtype=torch.float32, device="cuda",
+                    draw: bool = True
+                    ) -> Tuple[nn.Module, Iterator[Tuple[str, torch.Tensor]]]:
+        """`init(seed, dtype, device)` one parameter at a time: (the module
+        on the meta device, an iterator of (name, whole tensor on
+        `device`)) in the order `init` draws them, then the parameters it
+        zeroes.  With draw=False the tensors are left empty (a rank that
+        receives the weights from another).  Only one whole parameter need
+        be held at a time, so a model larger than one card can be placed
+        as it is made.  For the families whose every weight `init` either
+        draws or zeroes (dense, moe, vlm, audio)."""
+        if self.cfg.family not in ("dense", "moe", "vlm", "audio"):
+            raise ValueError(f"init_leaves: family {self.cfg.family} sets "
+                             f"weights that are neither drawn nor zero")
+        device = resolve_device(device)
+        with recorded_draws() as draws:
+            meta = self._init_fn()(self.cfg, None, dtype, "meta")
+        names = {id(p): n for n, p in meta.named_parameters()}
+        drawn = [(names[id(w)], scale) for w, scale in draws]
+
+        def leaves():
+            gen = torch.Generator(device=device).manual_seed(seed) \
+                if draw else None
+            shapes = dict((n, p.shape) for n, p in meta.named_parameters())
+            for name, scale in drawn:
+                yield name, (draw_normal(shapes[name], scale, gen, device)
+                             .to(dtype) if draw else torch.empty(
+                                 shapes[name], dtype=dtype, device=device))
+            seen = {n for n, _ in drawn}
+            for name, shape in shapes.items():
+                if name not in seen:
+                    yield name, torch.zeros(shape, dtype=dtype,
+                                            device=device)
+        return meta, leaves()
+
+    @_mixes_dtensors
     def loss(self, params: nn.Module, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(total loss, token loss) of a batch with tokens [B, S] (and the
@@ -76,6 +135,7 @@ class Model:
                 device=device)}
         return {"kv": kv}
 
+    @_mixes_dtensors
     def prefill(self, params: nn.Module, batch: Dict[str, torch.Tensor],
                 state: Dict[str, Any]
                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
@@ -106,6 +166,7 @@ class Model:
         kv, logits = transformer.lm_prefill(params, cfg, tokens, state["kv"])
         return {"kv": kv}, logits
 
+    @_mixes_dtensors
     def decode_step(self, params: nn.Module, token: torch.Tensor,
                     state: Dict[str, Any], index: int
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:

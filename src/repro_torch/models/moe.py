@@ -18,15 +18,25 @@ second one carries the results home.  The transport is a plain one
 `torch.distributed.all_to_all_single`) or the paper's tree all-to-all
 (`functools.partial(tree_all_to_all, prog=..., comm=...)`); it only moves
 values, so the outputs are bit-equal across transports.
+
+Under tensor parallelism (DTensor weights on a ("data", "model") mesh,
+repro_torch.launch.sharding) `moe_forward` runs the block on local tensors
+(`_moe_forward_sharded`): every rank routes every token of the batch (so
+the top-k, the capacity and its drops are the reference's), and computes
+its slice of each expert's ff dim, so its output is a partial sum over
+"model".
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.comms.collectives import Stacked
 
@@ -161,9 +171,60 @@ def _aux(cfg: ModelConfig, probs: torch.Tensor, onehot: torch.Tensor,
     return e * (density * probs.mean(dims)).sum(-1)
 
 
+def _moe_forward_sharded(p: MoE, cfg: ModelConfig, x: DTensor
+                         ) -> Tuple[DTensor, DTensor]:
+    """`moe_forward` of DTensor weights and tokens, on local tensors.  The
+    tokens and the router are gathered whole on every rank; the expert
+    tensors (and the shared expert) keep their ff dim over "model" where
+    it divides and are gathered over every other mesh dim.  The output is
+    then a partial sum over "model", and so is the aux loss, which each
+    rank scales by 1 / mp; the gradients of the whole tokens and router
+    are partial sums likewise.  Where ff does not divide "model", every
+    rank computes the whole block and the outputs are replicated."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    mp = mesh.size(names.index("model")) if "model" in names else 1
+    split = cfg.moe_d_ff % mp == 0 and (
+        not cfg.num_shared_experts
+        or cfg.moe_d_ff * cfg.num_shared_experts % mp == 0)
+    part = Partial() if split else Replicate()
+
+    def on(model_pl):
+        return [model_pl if n == "model" else Replicate() for n in names]
+
+    def local(t: DTensor, model_pl, grad_pl=None):
+        pl = on(model_pl if split else Replicate())
+        return t.redistribute(mesh, pl).to_local(
+            grad_placements=None if grad_pl is None else on(grad_pl))
+
+    lp = types.SimpleNamespace(
+        router=local(p.router, Replicate(), part),
+        w_gate=local(p.w_gate, Shard(2)), w_up=local(p.w_up, Shard(2)),
+        w_down=local(p.w_down, Shard(1)))
+    if cfg.num_shared_experts:
+        sh = p.shared
+        lp.shared = types.SimpleNamespace(
+            variant="gated",
+            w_gate=functools.partial(F.linear, weight=local(
+                sh.w_gate.weight, Shard(0))),
+            w_up=functools.partial(F.linear, weight=local(
+                sh.w_up.weight, Shard(0))),
+            w_down=functools.partial(F.linear, weight=local(
+                sh.w_down.weight, Shard(1))))
+        lp.shared_gate = local(p.shared_gate, Replicate(), part)
+    y, aux = moe_forward(lp, cfg, local(x, Replicate(), part))
+    if split:
+        aux = aux / mp
+    return (DTensor.from_local(y, mesh, on(part), run_check=False),
+            DTensor.from_local(aux, mesh, on(part), run_check=False))
+
+
 def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], load-balance aux loss scalar)."""
+    """x: [B, S, d] -> (out [B, S, d], load-balance aux loss scalar).
+    DTensor tokens take `_moe_forward_sharded`."""
+    if isinstance(x, DTensor):
+        return _moe_forward_sharded(p, cfg, x)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     t = b * s

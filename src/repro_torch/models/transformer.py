@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, MaskSpec, attention_forward,
@@ -207,9 +208,55 @@ def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
     return h, caches, aux_sum
 
 
+def _embed_sharded(embed: DTensor, tokens: torch.Tensor) -> DTensor:
+    """Rows of a DTensor embedding [V, d], looked up on local tensors: the
+    embedding gathered over every mesh dim but "model", where its vocab
+    may be split; each rank looks up the tokens of its own vocab rows and
+    zeroes the others, so the rows are a partial sum over "model" (reduced
+    here).  The tokens (a DTensor, rows over the batch axes, or a plain
+    tensor, replicated) keep their row placements.  The embedding's
+    gradient is then a partial sum over the axes the rows split."""
+    mesh = embed.device_mesh
+    tok_pl = tokens.placements if isinstance(tokens, DTensor) else \
+        [Replicate()] * mesh.ndim
+    tok = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    w_pl, grad_pl, out_pl = [], [], []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if name == "model":
+            w_pl.append(embed.placements[i])
+            grad_pl.append(embed.placements[i])
+            out_pl.append(Partial() if embed.placements[i].is_shard()
+                          else Replicate())
+        else:
+            rows = tok_pl[i]
+            w_pl.append(Replicate())
+            grad_pl.append(Partial() if rows.is_shard() else Replicate())
+            out_pl.append(rows)
+    w = embed
+    if tuple(w.placements) != tuple(w_pl):
+        w = w.redistribute(mesh, w_pl)
+    w = w.to_local(grad_placements=grad_pl)
+    if "model" in mesh.mesh_dim_names and \
+            embed.placements[mesh.mesh_dim_names.index("model")].is_shard():
+        rows = w.shape[0]
+        ids = tok - mesh.get_local_rank("model") * rows
+        outside = (ids < 0) | (ids >= rows)
+        h = w[torch.where(outside, 0, ids)]
+        h = torch.where(outside[..., None], torch.zeros((), dtype=h.dtype,
+                                                        device=h.device), h)
+    else:
+        h = w[tok]
+    return _settled(DTensor.from_local(h, mesh, out_pl, run_check=False))
+
+
 def embed_tokens(params: DecoderLM, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    h = params.embed[tokens]
+    """Rows of the embedding; a DTensor embedding through
+    `_embed_sharded`."""
+    if isinstance(params.embed, DTensor):
+        h = _embed_sharded(params.embed, tokens)
+    else:
+        h = params.embed[tokens]
     if cfg.scale_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model),
                              dtype=torch.float32).to(h.dtype)
@@ -241,6 +288,15 @@ def lm_logits(params: DecoderLM, cfg: ModelConfig,
 LOSS_CHUNK = 512   # sequence positions per logits chunk
 
 
+def _settled(t: torch.Tensor) -> torch.Tensor:
+    """t with every partial placement of a DTensor reduced (a gather from
+    vocab-sharded logits is a masked partial sum over "model")."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if p.is_partial() else p for p in t.placements])
+    return t
+
+
 def _chunk_nll(cfg: ModelConfig, hc: torch.Tensor, lc: torch.Tensor,
                final_norm: torch.Tensor, w_out: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -248,7 +304,7 @@ def _chunk_nll(cfg: ModelConfig, hc: torch.Tensor, lc: torch.Tensor,
     valid = lc != -100
     safe = torch.where(valid, lc, 0)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    gold = _settled(torch.gather(logits, -1, safe[..., None]))[..., 0]
     return ((logz - gold) * valid).sum(), valid.sum()
 
 

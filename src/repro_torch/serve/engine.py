@@ -13,6 +13,11 @@ Requests of the vlm and audio families carry their frontend embeddings in
 prefill's feed in the weights' dtype; a vlm batch's patches come before its padded prompts, so
 its caches and decode positions count them (pad and all, the pad sits
 between the patches and the text, as in the reference).
+
+With DTensor params (tensor parallelism, repro_torch.launch.sharding) the
+decode state is placed by `decode_state_specs` on the params' mesh, and the
+greedy argmax reads the whole logits (`full_tensor`), so ties go to the
+lower token as on one card.
 """
 from __future__ import annotations
 
@@ -23,8 +28,16 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model_zoo import Model
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """[B, 1] argmax of the last position's logits."""
+    if isinstance(logits, DTensor):
+        logits = logits.full_tensor()
+    return torch.argmax(logits[:, -1], dim=-1)[:, None]
 
 
 @dataclasses.dataclass
@@ -77,8 +90,15 @@ class ServingEngine:
             done.extend(self._run_batch(batch))
         return done
 
-    @torch.inference_mode()
     def _run_batch(self, reqs: Sequence[Request]) -> List[Completion]:
+        # DTensor params run under no_grad: under inference mode DTensor
+        # sees composite ops (a linear of a sharded input) whose sharding
+        # it recomputes on every call
+        sharded = isinstance(self.params.embed, DTensor)
+        with torch.no_grad() if sharded else torch.inference_mode():
+            return self._run_batch_inner(reqs)
+
+    def _run_batch_inner(self, reqs: Sequence[Request]) -> List[Completion]:
         t0 = time.perf_counter()
         bsz = len(reqs)
         plen = max(len(r.prompt) for r in reqs)
@@ -93,6 +113,13 @@ class ServingEngine:
         state = self.model.init_decode_state(
             bsz, min(self.max_len, plen + prefix + budget + 1), self.dtype,
             self.device)
+        if isinstance(self.params.embed, DTensor):
+            from repro_torch.launch.mesh import mesh_axis_sizes
+            from repro_torch.launch.sharding import (decode_state_specs,
+                                                     distribute_tree)
+            mesh = self.params.embed.device_mesh
+            state = distribute_tree(state, mesh, decode_state_specs(
+                state, cfg, mesh_axis_sizes(mesh)))
         feed = {"tokens": torch.from_numpy(toks).to(self.device)}
         if reqs[0].extras:
             dtype = self.params.embed.dtype
@@ -100,7 +127,7 @@ class ServingEngine:
                 feed[k] = torch.from_numpy(np.stack(
                     [r.extras[k] for r in reqs])).to(self.device, dtype)
         state, logits = self.model.prefill(self.params, feed, state)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        tok = _greedy(logits)
         host_tok = tok.cpu().numpy()
         t1 = time.perf_counter()
         self.stats["prefill_s"] += t1 - t0
@@ -121,7 +148,7 @@ class ServingEngine:
                 break
             logits, state = self.model.decode_step(
                 self.params, tok, state, plen + prefix + step)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            tok = _greedy(logits)
             host_tok = tok.cpu().numpy()
             self.stats["decode_tokens"] += bsz
 

@@ -23,6 +23,9 @@ step than the one it names, so a slow writer of an older step cannot move it
 back.  `gc_old` never removes the step `LATEST` names.  `wait_pending`
 re-raises a writer's error.  numpy has no bfloat16: a bf16 leaf raises
 `TypeError` naming it (the trainer's masters and moments are float32).
+A DTensor leaf (FSDP+TP training) is this rank's own shard: each rank
+writes its shards into its own directory and restores them into the same
+placements.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .optimizer import AdamWState
 
@@ -85,11 +89,19 @@ def flatten(tree: State, prefix: str = "") -> List[Tuple[str, Any]]:
     if not kids and not _is_leaf(tree):
         return []
     if not kids:
-        return [(prefix, tree)]
+        return [(prefix, _local(tree))]
     out = []
     for key, child in kids:
         out += flatten(child, f"{prefix}/{key}" if prefix else key)
     return out
+
+
+def _local(x: Any) -> Any:
+    """A DTensor's own shard (a view of it), any other leaf itself."""
+    if isinstance(x, DTensor):
+        with torch.no_grad():
+            return x.to_local()
+    return x
 
 
 def _is_leaf(x: Any) -> bool:
@@ -271,6 +283,7 @@ def _rebuild(tree: Any, values: Dict[str, Any], prefix: str = "") -> Any:
 
 
 def _copy_into(dst: torch.Tensor, src: Any) -> None:
+    dst = _local(dst)
     if src is not dst:          # a leaf restore() has already copied
         with torch.no_grad():
             dst.copy_(src)

@@ -5,6 +5,10 @@ parameters are the float32 masters (the trainer computes with a cast copy),
 so the reference's separate `master` copy has no counterpart.  Updates are in
 place: `adamw_update` overwrites the parameters, the moments and the
 gradients it is given, which saves a copy of each.
+
+DTensor parameters (FSDP+TP, repro_torch.launch.sharding) take the same
+path: each rank updates its own shards, their moments carry the same
+placements, and the global norm sums every leaf's whole norm.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 Grads = Dict[str, torch.Tensor]
 
@@ -60,8 +66,10 @@ def lr_schedule(cfg: AdamWConfig, step: int) -> float:
 
 
 def global_norm(tree: Grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
+    """sqrt of the sum of squares of every element, in float32.  The norm
+    of a DTensor leaf is reduced over its mesh to one replicated value."""
     norms = [torch.linalg.vector_norm(x.float()) for x in tree.values()]
+    norms = [n.full_tensor() if isinstance(n, DTensor) else n for n in norms]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -78,7 +86,7 @@ def adamw_update(cfg: AdamWConfig, grads: Grads, state: AdamWState,
     f = np.float32
     b1c = float(f(1) - f(cfg.b1) ** f(step))
     b2c = float(f(1) - f(cfg.b2) ** f(step))
-    with torch.no_grad():
+    with torch.no_grad(), implicit_replication():
         for name, p in params.named_parameters():
             g = grads[name].float().mul_(scale)
             mu, nu = state.mu[name], state.nu[name]

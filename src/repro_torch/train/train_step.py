@@ -11,6 +11,12 @@ vlm and audio frontends' embeddings) cast to the compute dtype.
 The `grad_reduce` hook is where data parallelism plugs in: the paper's
 tree-pipeline allreduce (`repro_torch.comms.BucketedAllReduce`) or
 `torch.distributed.all_reduce`.
+
+Under FSDP+TP the parameters, their AdamW state and the batch are DTensors
+(repro_torch.launch.sharding): the batch rows over the data axis, and each
+gradient, which comes back as a partial sum over the data axis, is
+redistributed to its parameter's placements (a reduce-scatter), so no
+`grad_reduce` hook runs.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models.model_zoo import Model
 
@@ -41,6 +49,33 @@ def cast_params(params: nn.Module, dtype) -> Grads:
             for n, p in params.named_parameters()}
 
 
+def _rows(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch i of n: rows [i * b / n, (i + 1) * b / n) of v, or of
+    each rank's own rows of a DTensor (the same average over the n)."""
+    if n == 1:
+        return v
+    if isinstance(v, DTensor):
+        local = v.to_local()
+        b = local.shape[0]
+        return DTensor.from_local(local[i * b // n:(i + 1) * b // n],
+                                  v.device_mesh, v.placements,
+                                  run_check=False)
+    b = v.shape[0]
+    return v[i * b // n:(i + 1) * b // n]
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _placed_grad(p: torch.Tensor) -> torch.Tensor:
+    """p's gradient; a DTensor's in p's own placements."""
+    g = p.grad
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def loss_and_grad(model: Model, params: nn.Module,
                   batch: Dict[str, torch.Tensor], cfg: TrainConfig
                   ) -> Tuple[torch.Tensor, Grads, torch.Tensor]:
@@ -56,17 +91,18 @@ def loss_and_grad(model: Model, params: nn.Module,
     loss = torch.zeros((), dtype=torch.float32, device=device)
     tok = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(n):
-        mb = {k: v[i * b // n:(i + 1) * b // n].to(
+        mb = {k: _rows(v, i, n).to(
                   device, cfg.compute_dtype if v.is_floating_point()
                   else v.dtype) for k, v in batch.items()}
         cast = cast_params(params, cfg.compute_dtype)
         total, token_loss = torch.func.functional_call(
             params, cast, (model.loss, mb))
         del cast
-        total.backward()
-        loss = loss + total.detach().float()
-        tok = tok + token_loss.detach().float()
-    grads = {name: p.grad for name, p in params.named_parameters()}
+        with implicit_replication():    # remat's recomputation runs here
+            total.backward()
+        loss = loss + _whole(total.detach().float())
+        tok = tok + _whole(token_loss.detach().float())
+    grads = {name: _placed_grad(p) for name, p in params.named_parameters()}
     if n > 1:
         for g in grads.values():
             g.div_(n)
