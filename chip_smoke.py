@@ -236,8 +236,31 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     losses, tokens/s, step seconds and peak memory per
                     card.  With one card it prints that it did not run.
 
+35. dryrun_cards    `repro_torch.launch.dryrun`'s main with fake CUDA
+                    tensors (its default --device cuda), one process per
+                    cell started together: qwen3-8b train_4k and
+                    prefill_32k on the fake 16x16 mesh, mixtral-8x7b
+                    decode_32k on 2x16x16, gemma2-2b long_500k (the
+                    reference's skip): each line OK (or SKIP), exit 0, no
+                    kernel launched; each cell's per-device counts,
+                    memory and roofline row, and the card's total memory
+                    beside `H100_SXM.hbm_bytes`.
+36. roofline_measured
+                    `analysis.hlo_count` around real steps on the card:
+                    qwen3-8b's prefill of 2 x 1024 tokens at full width
+                    (flash 36 launches a prefill) and gemma2-2b's train
+                    step of phase 9 (4 x 512, bf16 compute, fp32 masters,
+                    AdamW, remat): the counted per-device FLOPs and
+                    bytes, the `RooflineTerms` bound against `H100_SXM`,
+                    the wall seconds (median of timed calls) and the
+                    device-busy seconds (torch.profiler), and the MFU,
+                    model FLOPs / (seconds x peak bf16 FLOP/s).
+
 Phase 3 also holds flash against its plain version at the serving shapes
-of the vlm and audio families (FAMILY_FLASH) and times them.
+of the vlm and audio families (FAMILY_FLASH) and times them, and gives
+the host microseconds per call of flash through its custom op against the
+bare ctypes launch (`host_cost`).  The card's peaks (PEAK_*) are
+`repro_torch.topo.hardware.H100_SXM`'s.
 
 Then the card's line from nvidia-smi, a `kernels` JSON line (each kernel's
 launches on its main path, and per path of the later slices), and as the
@@ -266,9 +289,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores
-PEAK_F32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+from repro_torch.topo.hardware import H100_SXM  # noqa: E402
+
+PEAK_BF16_FLOPS = H100_SXM.peak_flops_bf16   # dense bf16 tensor cores
+PEAK_F32_FLOPS = H100_SXM.peak_flops_f32     # fp32 outside the tensor cores
+PEAK_BYTES = H100_SXM.hbm_bw                 # HBM3
 TOL = {torch.float32: 1e-4,   # accumulation order
        torch.bfloat16: 2e-2}  # the output's rounding
 MODEL_ATOL = 1e-4             # fp32 logits, kernel vs plain attention
@@ -540,8 +565,41 @@ def phase_kernel_vs_plain(seed: int) -> dict:
                fp32_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
     res["family_shapes"] = [_flash_time(gen, shape, mask)
                             for shape, mask in FAMILY_FLASH]
+    res["host_cost"] = _flash_host_cost(q, k, v)
     emit("kernel_vs_plain", **res)
     return res
+
+
+def _flash_host_cost(q, k, v, calls: int = 50) -> dict:
+    """Host microseconds per call to enqueue flash at the serving shape:
+    `flash_attention` as serving calls it (checks, the output's
+    allocation, the launch plan, the ctypes call), the custom op
+    `repro_torch::flash_attention` that a dispatch mode (fake tensors, the
+    counter) goes through, and the bare ctypes call with its arguments
+    ready.  The device time per call (~0.065 ms) exceeds each, so the loop
+    measures the host alone; turns alternate, twice."""
+    from repro_torch.kernels.flash_attention import (KERNEL, flash_attention,
+                                                     launch_args)
+    out = torch.empty_like(q)
+    args = launch_args(q, k, v, out, causal=True, window=None, prefix_len=0,
+                       logit_cap=None)
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = {"wrapper": lambda: flash_attention(q, k, v, causal=True),
+           "op": lambda: torch.ops.repro_torch.flash_attention(
+               q, k, v, True, 0, 0, 0.0),
+           "bare": lambda: KERNEL.launch(*args, stream)}
+    us = {name: [] for name in fns}
+    for name in ("wrapper", "op", "bare", "bare", "op", "wrapper") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name]()
+        us[name].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    best = {name: min(v) for name, v in us.items()}
+    return dict(calls=calls, us=us, us_min=best,
+                wrapper_extra_us=best["wrapper"] - best["bare"],
+                op_extra_us=best["op"] - best["bare"])
 
 
 def _allowed_entries(sq: int, skv: int, causal: bool, prefix_len: int = 0
@@ -2599,6 +2657,198 @@ def phase_model_parallel_cards(seed: int) -> None:
              argv=argv, seconds=time.perf_counter() - t0, ranks=ranks)
 
 
+# phase 35: the dry run on the card's machine, fake CUDA tensors
+DRYRUN_CARDS = [("qwen3-8b", "train_4k", "off"),
+                ("qwen3-8b", "prefill_32k", "off"),
+                ("mixtral-8x7b", "decode_32k", "on"),
+                ("gemma2-2b", "long_500k", "off")]       # a skip
+# the dry run's CLI, then the launches this process made
+_DRYRUN_CHILD = """
+import json, sys
+from repro_torch.kernels import CHUNK_ACCUM_KERNEL, FLASH_KERNEL, SSD_KERNEL
+from repro_torch.launch import dryrun
+rc = dryrun.main(sys.argv[1:])
+print(json.dumps({"launches": {"flash_attention": FLASH_KERNEL.launches,
+                               "chunk_accum": CHUNK_ACCUM_KERNEL.launches,
+                               "ssd_chunk": SSD_KERNEL.launches}}))
+sys.exit(rc)
+"""
+
+
+def phase_dryrun_cards() -> dict:
+    """`python -m repro_torch.launch.dryrun`'s main with fake CUDA tensors
+    (the default --device cuda): one process per cell, all started
+    together; each must print OK (or the reference's SKIP), exit 0 and
+    launch no kernel."""
+    from repro_torch.configs import shape_by_name, skip_reason
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = [((arch, shape, pod), subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CHILD, "--arch", arch, "--shape",
+         shape, "--multi-pod", pod, "--out", out], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch, shape, pod in DRYRUN_CARDS]
+    cells, failed = [], []
+    try:
+        for (arch, shape, pod), proc in procs:
+            so, se = proc.communicate(timeout=900)
+            if proc.returncode:
+                failed.append((arch, shape, so[-3000:], se[-3000:]))
+                continue
+            lines = [l for l in so.splitlines() if l.strip()]
+            launches = json.loads(lines[-1])["launches"]
+            assert not any(launches.values()), (arch, shape, launches)
+            mesh = "2x16x16" if pod == "on" else "16x16"
+            tag = f"{arch}/{shape}/{mesh}"
+            skip = skip_reason(arch, shape_by_name(shape))
+            assert lines[0].startswith(("SKIP " if skip else "OK   ") + tag), \
+                lines[0]
+            with open(os.path.join(out, f"{arch}__{shape}__{mesh}.json")) as f:
+                rec = json.load(f)
+            cells.append(dict(line=lines[0], launches=launches,
+                              seconds=rec["seconds"], skip=rec["skip"],
+                              memory=rec["memory"], cost=rec["cost"],
+                              collective_bytes=rec["collective_bytes"],
+                              collective_ops=rec["collective_ops"],
+                              roofline=rec["roofline"]))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    assert not failed, failed
+    res = dict(cells=cells, device="cuda (fake tensors)",
+               total_memory=torch.cuda.get_device_properties(0).total_memory,
+               spec_hbm_bytes=H100_SXM.hbm_bytes,
+               seconds=time.perf_counter() - t0)
+    emit("dryrun_cards", **res)
+    return res
+
+
+# phase 36: the counter around real steps on the card
+ROOFLINE_PREFILL = (2, 1024)        # phase 6's batch of its longest prompts
+ROOFLINE_TIMED = 5                  # timed calls after one warm-up
+
+
+def _measured_row(name: str, shape, counted: dict, model_flops: float,
+                  times: list, prof: dict) -> dict:
+    """The counted per-device work of one step beside its measured
+    seconds: the RooflineTerms bound, and the model FLOPs' share of the
+    card's bf16 peak over the wall and over the device-busy seconds."""
+    from repro_torch.analysis.roofline import RooflineTerms
+    terms = RooflineTerms(name, shape, "1", 1, counted["flops"],
+                          counted["bytes"], counted["collective_bytes"],
+                          model_flops)
+    wall = float(np.median(times))
+    return dict(arch=name, shape=shape, flops=counted["flops"],
+                bytes=counted["bytes"], model_flops=model_flops,
+                compute_s=terms.compute_s, memory_s=terms.memory_s,
+                bound_s=terms.bound_s, dominant=terms.dominant,
+                useful_flops_ratio=terms.useful_flops_ratio,
+                wall_s=times, wall_s_median=wall, busy_s=prof["busy_s"],
+                traced_wall_s=prof["wall_s"], launches=prof["launches"],
+                idle_share=1 - prof["busy_s"] / wall,
+                mfu=model_flops / (wall * PEAK_BF16_FLOPS),
+                mfu_busy=model_flops / (prof["busy_s"] * PEAK_BF16_FLOPS),
+                bound_share=terms.bound_s / wall,
+                top_kernels=prof["top_kernels"])
+
+
+def _timed_calls(fn, n: int) -> list:
+    fn()                                            # warm-up
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def phase_roofline_measured(seed: int) -> dict:
+    """qwen3-8b's prefill at full width (flash 36 times a prefill) and
+    gemma2-2b's train step (phase 9's: 4 x 512, bf16 compute, fp32
+    masters, AdamW, remat): `analysis.hlo_count` counts one call on real
+    tensors; the same call is timed (wall, between synchronizes) and
+    traced (device busy); the bound is `analysis.roofline`'s against
+    `H100_SXM`."""
+    from repro_torch.analysis.hlo_count import Counter
+    from repro_torch.analysis.profile_tools import device_profile
+    from repro_torch.analysis.roofline import model_flops_for
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
+                                     SSD_KERNEL)
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
+                                   host_batch_slice, init_train_state,
+                                   make_train_step)
+    kernels = {"flash_attention": FLASH_KERNEL,
+               "chunk_accum": CHUNK_ACCUM_KERNEL, "ssd_chunk": SSD_KERNEL}
+    for k in kernels.values():
+        k.launches = 0
+    rows = []
+
+    cfg = get_config("qwen3-8b")
+    model = build_model(cfg)
+    params = model.init(seed, torch.bfloat16, DEV)
+    b, s = ROOFLINE_PREFILL
+    toks = torch.tensor(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (b, s)), device=DEV)
+    state = model.init_decode_state(b, 2 * s, torch.bfloat16, DEV)
+
+    @torch.no_grad()
+    def prefill():
+        return model.prefill(params, {"tokens": toks}, state)[1]
+    times = _timed_calls(prefill, ROOFLINE_TIMED)
+    prof = device_profile(prefill)
+    flash = FLASH_KERNEL.launches
+    with Counter() as c:
+        logits = prefill()
+    assert FLASH_KERNEL.launches - flash == cfg.num_layers
+    assert logits.shape == (b, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    rows.append(_measured_row(
+        cfg.name, f"prefill {b}x{s}", c.totals(), model_flops_for(
+            cfg, ShapeSpec("prefill", "prefill", s, b)), times, prof))
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+    arch, steps_batch, seq = TRAIN_ARGV[1], 4, 512
+    cfg = get_config(arch)
+    model = build_model(cfg, remat=True)
+    params, opt = init_train_state(model, seed, DEV)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                           total_steps=10),
+                     compute_dtype=torch.bfloat16)
+    step = make_train_step(model, tc)
+    batch = {k: v.to(DEV) for k, v in host_batch_slice(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                   global_batch=steps_batch), 0, 0, steps_batch).items()}
+    losses = []
+
+    def train():
+        losses.append(float(step(params, opt, batch)[2]["loss"]))
+    times = _timed_calls(train, 2)
+    prof = device_profile(train)
+    with Counter() as c:
+        train()
+    assert all(math.isfinite(l) for l in losses), losses
+    rows.append(_measured_row(
+        cfg.name, f"train {steps_batch}x{seq}", c.totals(), model_flops_for(
+            cfg, ShapeSpec("train", "train", seq, steps_batch)), times,
+        prof))
+    del params, opt
+    torch.cuda.empty_cache()
+    launches = {n: k.launches for n, k in kernels.items()}
+    assert launches["chunk_accum"] == launches["ssd_chunk"] == 0
+    res = dict(rows=rows, launches=launches, losses=losses,
+               peak_flops_bf16=PEAK_BF16_FLOPS, hbm_bw=PEAK_BYTES)
+    emit("roofline_measured", **res)
+    return res
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2651,6 +2901,8 @@ def main() -> int:
     phase_families_entry_point()
     mesh1 = phase_model_parallel_mesh1(args.seed)
     phase_model_parallel_cards(args.seed)
+    dry = phase_dryrun_cards()
+    measured = phase_roofline_measured(args.seed)
     # the later slices' paths, each counted from 0 just before it
     paths = {name: {"train_long": n} for name, n in
              long["kernel_launches"].items()}
@@ -2667,6 +2919,9 @@ def main() -> int:
             mesh1["serve"]["mesh"]["launches"][name]
         paths[name]["model_parallel_mesh1_train"] = \
             mesh1["train"]["mesh"]["launches"][name]
+        paths[name]["dryrun_cards"] = sum(c["launches"][name]
+                                          for c in dry["cells"])
+        paths[name]["roofline_measured"] = measured["launches"][name]
 
     print(smi)
     print(json.dumps({"kernels": [{

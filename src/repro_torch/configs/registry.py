@@ -1,12 +1,14 @@
 """Architecture registry: the 10 architectures of src/repro/configs, with the
-same values, and the tiny same-family configs the tests use."""
+same values, their shape grid (40 cells) and the documented long_500k
+skips, and the tiny same-family configs the tests use."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.models.common import ModelConfig
 
+from .shapes import ALL_SHAPES, ShapeSpec
 from .mistral_nemo_12b import CONFIG as MISTRAL_NEMO_12B
 from .gemma2_2b import CONFIG as GEMMA2_2B
 from .command_r_35b import CONFIG as COMMAND_R_35B
@@ -24,6 +26,35 @@ ARCHS: Dict[str, ModelConfig] = {
         QWEN2_MOE_A2_7B, MIXTRAL_8X7B, PALIGEMMA_3B, WHISPER_MEDIUM,
         ZAMBA2_1_2B, MAMBA2_780M)
 }
+
+# archs whose decode state stays bounded (or O(1)) at 500k context
+_LONG_CONTEXT_OK = {"mixtral-8x7b", "zamba2-1.2b", "mamba2-780m"}
+
+_SKIP_REASONS = {
+    "mistral-nemo-12b": "pure full attention: unbounded 500k KV per layer",
+    "command-r-35b": "pure full attention: unbounded 500k KV per layer",
+    "qwen3-8b": "pure full attention: unbounded 500k KV per layer",
+    "qwen2-moe-a2.7b": "pure full attention: unbounded 500k KV per layer",
+    "paligemma-3b": "full-attention prefix LM: unbounded 500k KV",
+    "gemma2-2b": "alternating global layers are full attention at 500k",
+    "whisper-medium": "decoder hard-capped at 448 positions by design",
+}
+
+
+def skip_reason(arch: str, shape: ShapeSpec) -> Optional[str]:
+    """None = the (arch, shape) cell runs; else the documented skip."""
+    if shape.name == "long_500k" and arch not in _LONG_CONTEXT_OK:
+        return _SKIP_REASONS[arch]
+    return None
+
+
+def cells() -> List[Tuple[ModelConfig, ShapeSpec, Optional[str]]]:
+    """The full 40-cell grid with skip annotations."""
+    out = []
+    for cfg in ARCHS.values():
+        for shape in ALL_SHAPES:
+            out.append((cfg, shape, skip_reason(cfg.name, shape)))
+    return out
 
 
 def get_config(name: str) -> ModelConfig:

@@ -8,7 +8,12 @@
                      src/repro/kernels/ssd_scan.py)
 
 Kernels build with nvcc at first launch (`build.py`), never at import.
+flash_attention and ssd_chunk run through custom ops (`KERNEL_OPS`), each
+with a fake implementation and a FLOP formula, so fake tensors (the dry
+run) reach them and `analysis.hlo_count` counts them.
 """
+import torch
+
 from .chunk_accum import KERNEL as CHUNK_ACCUM_KERNEL  # noqa: F401
 from .chunk_accum import chunk_accum, chunk_accum_indexed  # noqa: F401
 from .flash_attention import KERNEL as FLASH_KERNEL  # noqa: F401
@@ -19,3 +24,6 @@ from .ref import (chunk_accum_indexed_reference,  # noqa: F401
                   ssd_chunk_intra_reference)
 from .ssd_scan import KERNEL as SSD_KERNEL  # noqa: F401
 from .ssd_scan import ssd_chunk_intra, ssd_chunk_intra_heads  # noqa: F401
+
+KERNEL_OPS = (torch.ops.repro_torch.flash_attention,
+              torch.ops.repro_torch.ssd_chunk_intra_heads)

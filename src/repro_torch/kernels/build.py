@@ -107,3 +107,16 @@ class Kernel:
                 f"{self.name} kernel launch failed: CUDA error {err} "
                 f"({lib.repro_cuda_error_string(err).decode()})")
         self.launches += 1
+
+
+def through_op(*tensors) -> bool:
+    """Whether a wrapper enters its custom op: under a dispatch mode (fake
+    tensors, `analysis.hlo_count`'s counter) or for a tensor subclass,
+    which must see the op (its fake implementation, its FLOP formula).  A
+    plain call runs the op's body directly: the op's dispatch added ~44 us
+    of host time to each flash call on an "NVIDIA H100 80GB HBM3, 700.00
+    W" (chip_smoke.py phase 3's host_cost)."""
+    import torch
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    return _get_current_dispatch_mode() is not None or any(
+        type(t) is not torch.Tensor for t in tensors)

@@ -18,6 +18,7 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .ref import mha_reference
@@ -99,13 +100,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,H,Sq,D]; k, v: [B,Hkv,Skv,D] -> [B,H,Sq,D] in q's dtype.
     The output has q's strides, so a transposed view of a [B,S,H,D] tensor
     gives an output whose transpose is contiguous.  A bfloat16 view whose
-    rows do not start on 16 bytes is copied to a dense one first."""
+    rows do not start on 16 bytes is copied to a dense one first.  Under a
+    dispatch mode (fake tensors, a counter) it runs through the custom op
+    `repro_torch::flash_attention`, so they see its fake implementation
+    and FLOP formula; a plain call runs the op's body directly."""
     _check(q, k, v, window, prefix_len, logit_cap)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    args = (q, k, v, causal, window or 0, prefix_len, logit_cap or 0.0)
+    if build.through_op(q, k, v):
+        return torch.ops.repro_torch.flash_attention(*args)
+    return _flash(*args)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, window: int, prefix_len: int,
+           logit_cap: float) -> torch.Tensor:
+    """The checked call: window 0 and logit_cap 0.0 mean none."""
+    window, logit_cap = window or None, logit_cap or None
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, window=window,
                              prefix_len=prefix_len, logit_cap=logit_cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     if q.dtype == torch.bfloat16:
         q, k, v = (t if _rows_aligned(t) else
                    t.clone(memory_format=torch.contiguous_format)
@@ -116,3 +131,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         KERNEL.launch(*args, torch.cuda.current_stream(q.device).cuda_stream)
     return out
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention",
+                                    _flash, mutates_args=())
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, prefix_len, logit_cap):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs
+                ) -> int:
+    """The matmul FLOPs of the plain version: q.k and p.v over every
+    (query, key) pair, 4 * B * H * Sq * Skv * D, whatever the mask."""
+    b, h, sq, d = q_shape
+    return 4 * b * h * sq * k_shape[2] * d

@@ -90,30 +90,9 @@ def ssd_chunk_intra_reference(x: torch.Tensor, dt: torch.Tensor,
     and each difference is rounded to float32 once: a float32 cumsum over a
     512-row chunk carries errors of ~1e-4 into L, which would depend on the
     order of the sum; the kernel computes the same float64 sum."""
-    bh, s, p = x.shape
-    n = b.shape[-1]
-    if s % chunk:
-        raise ValueError(f"seq {s} must divide chunk {chunk}")
-    l = s // chunk
-    xf = x.float().reshape(bh, l, chunk, p)
-    dtf = dt.float().reshape(bh, l, chunk)
-    bf = b.float().reshape(bh, l, chunk, n)
-    cf = c.float().reshape(bh, l, chunk, n)
-    da = dtf * a.float()[:, None, None]                   # [BH,L,Q]
-    cum = torch.cumsum(da, dim=-1, dtype=torch.float64)
-    diff = (cum[..., :, None] - cum[..., None, :]).float()
-    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
-                                 device=x.device))
-    # masked before the exp: the positive differences above the diagonal
-    # may overflow to inf, and under autograd the backward of a select
-    # after the exp would multiply its zero gradient by that inf
-    ll = torch.exp(torch.where(mask, diff, -torch.inf))
-    xdt = xf * dtf[..., None]                             # [BH,L,Q,P]
-    scores = cf @ bf.transpose(-1, -2)                    # [BH,L,Q,Q]
-    y = (scores * ll) @ xdt
-    decay = torch.exp((cum[..., -1:] - cum).float())      # [BH,L,Q]
-    states = xdt.transpose(-1, -2) @ (bf * decay[..., None])
-    return y.reshape(bh, s, p).to(x.dtype), states
+    y, states = ssd_chunk_intra_heads_reference(
+        x[:, None], dt[:, None], a[:, None], b[:, None], c[:, None], chunk)
+    return y[:, 0], states[:, 0]
 
 
 def ssd_chunk_intra_heads_reference(x: torch.Tensor, dt: torch.Tensor,
@@ -122,14 +101,32 @@ def ssd_chunk_intra_heads_reference(x: torch.Tensor, dt: torch.Tensor,
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ssd_chunk_intra_reference on the heads layout of
     `ssd_scan.ssd_chunk_intra_heads`: x [B,H,S,P], dt [B,H,S], a [B,H],
-    b, c [B,G,S,N] with G = H or 1 (every head reads the same b, c), any
-    broadcastable strides.  Returns (y [B,H,S,P], states [B,H,L,P,N] f32);
-    the flattening copies b and c once per head."""
+    b, c [B,G,S,N] with G = H or 1, any broadcastable strides.  Returns
+    (y [B,H,S,P], states [B,H,L,P,N] f32).  With G = 1 (every head reads
+    the same b, c, as Mamba2's do) C.B^T is computed once per batch row
+    and chunk and shared by the heads, as the reference model computes
+    it."""
     bs, h, s, p = x.shape
-    n = b.shape[-1]
-    y, states = ssd_chunk_intra_reference(
-        x.reshape(bs * h, s, p), dt.reshape(bs * h, s),
-        a.expand(bs, h).reshape(bs * h),
-        b.expand(bs, h, s, n).reshape(bs * h, s, n),
-        c.expand(bs, h, s, n).reshape(bs * h, s, n), chunk)
-    return y.reshape(bs, h, s, p), states.reshape(bs, h, s // chunk, p, n)
+    g, n = b.shape[1], b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} must divide chunk {chunk}")
+    l = s // chunk
+    xf = x.float().reshape(bs, h, l, chunk, p)
+    dtf = dt.float().reshape(bs, h, l, chunk)
+    bf = b.float().reshape(bs, g, l, chunk, n)
+    cf = c.float().reshape(bs, g, l, chunk, n)
+    da = dtf * a.float().expand(bs, h)[..., None, None]     # [B,H,L,Q]
+    cum = torch.cumsum(da, dim=-1, dtype=torch.float64)
+    diff = (cum[..., :, None] - cum[..., None, :]).float()
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))
+    # masked before the exp: the positive differences above the diagonal
+    # may overflow to inf, and under autograd the backward of a select
+    # after the exp would multiply its zero gradient by that inf
+    ll = torch.exp(torch.where(mask, diff, -torch.inf))
+    xdt = xf * dtf[..., None]                               # [B,H,L,Q,P]
+    scores = cf @ bf.transpose(-1, -2)                      # [B,G,L,Q,Q]
+    y = (scores * ll) @ xdt
+    decay = torch.exp((cum[..., -1:] - cum).float())        # [B,H,L,Q]
+    states = xdt.transpose(-1, -2) @ (bf * decay[..., None])
+    return y.reshape(bs, h, s, p).to(x.dtype), states

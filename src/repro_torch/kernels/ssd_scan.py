@@ -27,6 +27,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .ref import ssd_chunk_intra_heads_reference
@@ -141,7 +142,9 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     `y` and `states` when given (views of those shapes, last dims
     contiguous).  On the card, a bfloat16 x, b or c whose rows do not start
     on 16 bytes is copied to a dense tensor first, and such a `y` is
-    written through one."""
+    written through one.  Under a dispatch mode (fake tensors, a counter)
+    it runs through the custom op `repro_torch::ssd_chunk_intra_heads`; a
+    plain call runs the op's body directly."""
     _check(x, dt, a, b, c, chunk)
     bs, h, s, p = x.shape
     n = b.shape[-1]
@@ -157,38 +160,63 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             or (states is not None and states.stride(-2) != n):
         raise ValueError("the last dim of x, b, c, y and the [P, N] block of "
                          "states must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_chunk_intra runs on cuda or cpu, not {x.device}")
+    if y is None:
+        y = torch.empty(shape_y, dtype=x.dtype, device=x.device)
+    if states is None:
+        states = torch.empty(shape_st, dtype=torch.float32, device=x.device)
+    args = (x, dt, a, b, c, chunk, y, states)
+    if build.through_op(x, dt, a, b, c, y, states):
+        torch.ops.repro_torch.ssd_chunk_intra_heads(*args)
+    else:
+        _ssd(*args)
+    return y, states
+
+
+def _ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+         b: torch.Tensor, c: torch.Tensor, chunk: int, y: torch.Tensor,
+         states: torch.Tensor) -> None:
+    """The checked call, writing y and states."""
     if x.device.type == "cpu":
         ry, rs = ssd_chunk_intra_heads_reference(x, dt, a, b, c, chunk)
-        if y is None:
-            y = ry
-        else:
-            y.copy_(ry)
-        if states is None:
-            states = rs
-        else:
-            states.copy_(rs)
-        return y, states
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk_intra runs on cuda or cpu, not {x.device}")
+        y.copy_(ry)
+        states.copy_(rs)
+        return
     out_y = y
     if x.dtype == torch.bfloat16:
         x, b, c = dense_if_unaligned(x, b, c)
-        if y is not None and not _rows_aligned(y, y.stride()[:3]):
-            y = None                    # written through a dense one
-    y = torch.empty(shape_y, dtype=x.dtype, device=x.device) if y is None \
-        else y
-    states = torch.empty(shape_st, dtype=torch.float32, device=x.device) \
-        if states is None else states
+        if not _rows_aligned(y, y.stride()[:3]):
+            y = torch.empty(y.shape, dtype=x.dtype, device=x.device)
     dt, a = dt.float(), a.float()       # [B,H,S] and [B,H]: cheap if copied
     work = torch.empty(work_bytes(x, chunk), dtype=torch.uint8,
                        device=x.device) if x.dtype == torch.bfloat16 else None
     args = launch_args(x, dt, a, b, c, y, states, work, chunk)
     with torch.cuda.device(x.device):
         KERNEL.launch(*args, torch.cuda.current_stream(x.device).cuda_stream)
-    if out_y is not None and out_y is not y:
+    if out_y is not y:
         out_y.copy_(y)
-        y = out_y
-    return y, states
+
+
+_ssd_op = torch.library.custom_op("repro_torch::ssd_chunk_intra_heads", _ssd,
+                                  mutates_args=("y", "states"))
+
+
+@_ssd_op.register_fake
+def _(x, dt, a, b, c, chunk, y, states):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_intra_heads)
+def ssd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk, *args,
+              out_shape=None, **kwargs) -> int:
+    """The matmul FLOPs of the plain version, per chunk of Q rows: C.B^T
+    once per group of b, c (2 Q Q N), and per head its masked product with
+    x dt (2 Q Q P) and the state (2 P Q N):
+    2 * B * S * (G Q N + H (Q P + P N))."""
+    bs, h, s, p = x_shape
+    g, n = b_shape[1], b_shape[-1]
+    return 2 * bs * s * (g * chunk * n + h * (chunk * p + p * n))
 
 
 def ssd_chunk_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -282,16 +282,25 @@ def distribute_tree(tree: Any, mesh, specs: Any) -> Any:
                      if isinstance(t, torch.Tensor) else t)
 
 
-def local_bytes(shape: Sequence[int], spec: Spec, axis_sizes: AxisSizes,
-                itemsize: int) -> int:
-    """Bytes of one rank's chunk of a tensor of `shape` under `spec` (the
-    chunks of a divisible split are equal)."""
-    n = itemsize
+def local_shape(shape: Sequence[int], spec: Spec, axis_sizes: AxisSizes
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's chunk of a tensor of `shape` under `spec`
+    (the chunks of a divisible split are equal)."""
+    out = []
     for size, entry in zip(shape, spec):
         axes = entry if isinstance(entry, tuple) else (
             () if entry is None else (entry,))
         div = 1
         for a in axes:
             div *= axis_sizes[a]
-        n *= size // div
+        out.append(size // div)
+    return tuple(out) + tuple(shape[len(spec):])
+
+
+def local_bytes(shape: Sequence[int], spec: Spec, axis_sizes: AxisSizes,
+                itemsize: int) -> int:
+    """Bytes of one rank's chunk of a tensor of `shape` under `spec`."""
+    n = itemsize
+    for size in local_shape(shape, spec, axis_sizes):
+        n *= size
     return n

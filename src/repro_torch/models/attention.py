@@ -39,8 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import flash_attention_bshd
 
-from .common import (ModelConfig, NEG_INF, apply_rope, dense_init, rms_norm,
-                     softcap)
+from .common import (ModelConfig, NEG_INF, activation_candidate, apply_rope,
+                     dense_init, rms_norm, softcap, unsplit_sequence)
 
 BLOCKWISE_THRESHOLD = 2048      # use the blockwise path above this many rows
 BLOCK_Q = 1024
@@ -276,24 +276,52 @@ def _placed(x: DTensor, placements) -> DTensor:
     return x.redistribute(x.device_mesh, placements)
 
 
+def _split_like_input_dim(y: torch.Tensor, w: torch.Tensor
+                          ) -> torch.Tensor:
+    """A DTensor y [..., n] replicated over a mesh dim that splits the
+    input dim of the linear weight w [m, n], split there before the
+    product.  DTensor would split it inside the product, where its
+    gradient then comes back split over the heads' flattened dim, which a
+    reshape into heads that the mesh dim does not divide refuses; split
+    here, the gradient is gathered on the way back."""
+    if not isinstance(y, DTensor) or not isinstance(w, DTensor):
+        return y
+    last = y.dim() - 1
+    return _placed(y, [Shard(last) if wp.is_shard() and wp.dim == 1
+                       and yp.is_replicate() else yp
+                       for yp, wp in zip(y.placements, w.placements)])
+
+
 def _attend_sharded(q, k, v, q_pos, kv_pos, spec: MaskSpec,
                     logit_cap: Optional[float]) -> torch.Tensor:
     """`attend` on DTensors q [B,S,H,D], k/v [B,T,Hkv,D]: rows over the
     batch axes where they divide, heads over "model" where H does (kv
     heads too where Hkv does; else each rank slices the kv heads its q
     heads read from the whole kv, whose gradient is then a partial sum).
-    Each rank attends its own rows and heads on local tensors."""
+    Each rank attends its own rows and heads on local tensors.
+
+    The dry run's activation policy ('attn_qkv': heads over "model", else
+    rows over the batch axes and "model", else rows over the batch axes)
+    maps onto this: where H does not divide "model" but the rows divide
+    every axis, the rows are split over "model" too instead of every
+    "model" rank attending all heads of its rows."""
     mesh = q.device_mesh
     h, hkv = q.shape[2], k.shape[2]
     qp, kvp, kv_grad = [], [], []
     model_rank = None
-    for i, name in enumerate(mesh.mesh_dim_names):
+    names = mesh.mesh_dim_names
+    cand = activation_candidate(q.shape, "attn_qkv") \
+        if "model" in names else None
+    rows_over_model = cand is not None and \
+        cand.placements[names.index("model")] == Shard(0)
+    for i, name in enumerate(names):
         n = mesh.size(i)
         if name == "model":
             if h % n:
-                qp.append(Replicate())
-                kvp.append(Replicate())
-                kv_grad.append(Replicate())
+                rows = Shard(0) if rows_over_model else Replicate()
+                qp.append(rows)
+                kvp.append(rows)
+                kv_grad.append(rows)
             elif hkv % n:
                 qp.append(Shard(2))
                 kvp.append(Replicate())
@@ -397,6 +425,7 @@ def attention_forward(
     """
     hd = cfg.hd
     b, s, _ = x.shape
+    x = unsplit_sequence(x)
     q = split_heads(p.wq(x), cfg.num_heads, hd)
     if kv_override is None:
         k = split_heads(p.wk(x), cfg.num_kv_heads, hd)
@@ -424,8 +453,10 @@ def attention_forward(
             # ROLLED so that row r holds absolute position p = r (mod clen)
             # -- decode's ring_positions() relies on that alignment
             shift = s % clen
-            kw = torch.roll(k[:, -clen:], shift, dims=1)
-            vw = torch.roll(v[:, -clen:], shift, dims=1)
+            kw, vw = k[:, -clen:], v[:, -clen:]
+            if shift:       # (no roll when the prompt fills the cache)
+                kw = torch.roll(kw, shift, dims=1)
+                vw = torch.roll(vw, shift, dims=1)
             widx = 0
         n = kw.shape[1]
         widx = min(widx, clen - n)   # the reference's update clamps its start
@@ -444,4 +475,5 @@ def attention_forward(
 
     out = attend(q, k.to(q.dtype), v.to(q.dtype), positions, kv_pos, spec,
                  logit_cap)
-    return p.wo(out.reshape(b, s, cfg.num_heads * hd)), new_cache
+    y = out.reshape(b, s, cfg.num_heads * hd)
+    return p.wo(_split_like_input_dim(y, p.wo.weight)), new_cache

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -120,6 +120,99 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' "
                            "(--device cpu) to run on the CPU")
     return device
+
+
+# ---------------------------------------------------------------------- #
+# activation-sharding policy (set by the dry run; models stay mesh-free)
+# ---------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class ActivationSharding:
+    """One candidate layout of an activation on a DeviceMesh: `spec` has one
+    entry per tensor dim, an axis name, a tuple of axis names or None, as
+    the reference's PartitionSpec; `placements` is the same layout as one
+    Shard or Replicate per mesh dim (`launch.sharding.to_placements`)."""
+    mesh: Any
+    spec: Tuple[Any, ...]
+    placements: Tuple[Any, ...]
+
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
+
+
+_ACT_SHARDING: Dict[str, Any] = {}
+
+
+def set_activation_sharding(policy: Optional[Dict[str, Any]]) -> None:
+    """policy: {kind: ActivationSharding, or an ordered list of them} for
+    the kinds 'residual' [B,S,d], 'logits' [B,S,V], 'attn_qkv' [B,S,H,D],
+    'attn_kv_full' and 'moe_tokens' / 'moe_dispatch'.  The dry run installs
+    it, as the reference's does, so the batch stays on the data axes
+    instead of being replicated; None clears it (the launchers set
+    none)."""
+    _ACT_SHARDING.clear()
+    if policy:
+        _ACT_SHARDING.update(policy)
+
+
+def _divides(shape: Sequence[int], sh: ActivationSharding) -> bool:
+    sizes = sh.sizes()
+    for dim, names in enumerate(sh.spec):
+        if names is None:
+            continue
+        names = names if isinstance(names, tuple) else (names,)
+        size = 1
+        for n in names:
+            size *= sizes[n]
+        if dim >= len(shape) or shape[dim] % size:
+            return False
+    return True
+
+
+def activation_candidate(shape: Sequence[int], kind: str
+                         ) -> Optional[ActivationSharding]:
+    """The first candidate of `kind` whose named dims divide `shape`, or
+    None (no policy, or nothing fits: decode's seq=1, odd vocabs, few
+    heads)."""
+    cands = _ACT_SHARDING.get(kind)
+    if cands is None:
+        return None
+    if not isinstance(cands, (list, tuple)):
+        cands = (cands,)
+    for sh in cands:
+        if _divides(shape, sh):
+            return sh
+    return None
+
+
+def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """A DTensor x redistributed to the first policy candidate of `kind`
+    whose named dims divide its shape; x itself when no policy is set,
+    nothing fits, x already has that layout, or x is a plain tensor."""
+    from torch.distributed.tensor import DTensor
+    if not _ACT_SHARDING or not isinstance(x, DTensor):
+        return x
+    sh = activation_candidate(x.shape, kind)
+    if sh is None or tuple(x.placements) == sh.placements:
+        return x
+    return x.redistribute(x.device_mesh, sh.placements)
+
+
+def unsplit_sequence(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor [B, S, ...] whose sequence dim is split over a mesh dim
+    (the 'residual' policy's sequence parallelism) gathered over it, once,
+    before a block's products, which need every row: one all-gather per
+    block where DTensor would gather for each projection, and no strided
+    layout of the flattened rows for its planner to search.  Anything else
+    (a plain tensor, every launcher's path) is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or x.dim() < 3:
+        return x
+    pl = [Replicate() if p.is_shard() and p.dim == 1 else p
+          for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
 
 
 # ---------------------------------------------------------------------- #

@@ -25,7 +25,8 @@ from torch import nn
 
 from .attention import (CAUSAL, FULL, Attention, attention_forward,
                         init_attention, split_heads)
-from .common import ModelConfig, dense_init, resolve_device, rms_norm
+from .common import (ModelConfig, constrain, dense_init, resolve_device,
+                     rms_norm)
 from .mlp import MLP, init_mlp, mlp_forward
 from .transformer import (Caches, _Applied, _norm, embed_tokens, lm_logits,
                           next_token_loss, remat_apply)
@@ -114,9 +115,10 @@ def _encoder_layer(lp: EncoderLayer, cfg: ModelConfig, h: torch.Tensor
                    ) -> torch.Tensor:
     a_out, _ = attention_forward(
         lp.attn, cfg, rms_norm(h, lp.ln_attn, cfg.norm_eps), None, FULL)
-    h = h + a_out
+    h = h + constrain(a_out, "residual")
     m_in = rms_norm(h, lp.ln_mlp, cfg.norm_eps)
-    return h + mlp_forward(lp.mlp, m_in, cfg.activation)
+    return h + constrain(mlp_forward(lp.mlp, m_in, cfg.activation),
+                         "residual")
 
 
 def encode(params: EncDecLM, cfg: ModelConfig, audio_embed: torch.Tensor,
@@ -128,8 +130,8 @@ def encode(params: EncDecLM, cfg: ModelConfig, audio_embed: torch.Tensor,
         device=audio_embed.device, dtype=audio_embed.dtype)
     h = audio_embed + table[None]
     for lp in params.enc_layers:
-        h = (remat_apply(lp, _encoder_layer, cfg, h) if remat
-             else _encoder_layer(lp, cfg, h))
+        h = constrain(remat_apply(lp, _encoder_layer, cfg, h) if remat
+                      else _encoder_layer(lp, cfg, h), "residual")
     return rms_norm(h, params.enc_norm, cfg.norm_eps)
 
 
@@ -156,13 +158,14 @@ def _decoder_layer(lp: DecoderLayerXAttn, cfg: ModelConfig, h: torch.Tensor,
     s_out, _ = attention_forward(
         lp.self_attn, cfg, rms_norm(h, lp.ln_self, cfg.norm_eps), positions,
         CAUSAL, cache=cache, cache_index=cache_index)
-    h = h + s_out
+    h = h + constrain(s_out, "residual")
     c_out, _ = attention_forward(
         lp.cross_attn, cfg, rms_norm(h, lp.ln_cross, cfg.norm_eps),
         positions, FULL, kv_override=_cross_kv(lp, cfg, enc_out))
-    h = h + c_out
+    h = h + constrain(c_out, "residual")
     m_in = rms_norm(h, lp.ln_mlp, cfg.norm_eps)
-    return h + mlp_forward(lp.mlp, m_in, cfg.activation)
+    return h + constrain(mlp_forward(lp.mlp, m_in, cfg.activation),
+                         "residual")
 
 
 def decode_stack(params: EncDecLM, cfg: ModelConfig, h: torch.Tensor,
@@ -182,6 +185,7 @@ def decode_stack(params: EncDecLM, cfg: ModelConfig, h: torch.Tensor,
             cache = None if caches is None else (caches[0][i], caches[1][i])
             h = _decoder_layer(lp, cfg, h, enc_out, positions, cache,
                                cache_index)
+        h = constrain(h, "residual")
     return h, caches
 
 

@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from .attention import CAUSAL, Attention, attention_forward, init_attention
-from .common import ModelConfig, dense_init, resolve_device, rms_norm
+from .common import (ModelConfig, constrain, dense_init, resolve_device,
+                     rms_norm)
 from .mlp import MLP, init_mlp, mlp_forward
 from .ssm import Mamba2, SSMState, init_mamba2, init_ssm_state, mamba2_forward
 from .transformer import (_Applied, _norm, embed_tokens, lm_logits,
@@ -137,7 +138,7 @@ def ssm_stack(params: SSMLM, cfg: ModelConfig, h: torch.Tensor,
     """states: stacked (conv [L,B,W-1,C], ssm [L,B,H,P,N]) written in place,
     or None.  remat: recompute each layer in the backward pass."""
     for i, layer in enumerate(params.layers):
-        h = _ssm_layer(layer, cfg, h, states, i, remat)
+        h = constrain(_ssm_layer(layer, cfg, h, states, i, remat), "residual")
     return h, states
 
 
@@ -213,7 +214,8 @@ def hybrid_stack(params: HybridLM, cfg: ModelConfig, h: torch.Tensor,
     the reference)."""
     every = cfg.hybrid_attn_every
     for i, layer in enumerate(params.layers):
-        h = _ssm_layer(layer, cfg, h, ssm_states, i, remat)
+        h = constrain(_ssm_layer(layer, cfg, h, ssm_states, i, remat),
+                      "residual")
         site = i // every
         if (i + 1) % every == 0 and site < num_shared_sites(cfg):
             kv = None if kv_caches is None else \

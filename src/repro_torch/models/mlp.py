@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import activation_fn, dense_init
+from .common import activation_fn, dense_init, unsplit_sequence
 
 
 class MLP(nn.Module):
@@ -35,6 +35,7 @@ def init_mlp(p: MLP, generator: torch.Generator) -> None:
 def mlp_forward(p: MLP, x: torch.Tensor, activation: str = "silu"
                 ) -> torch.Tensor:
     act = activation_fn(activation)
+    x = unsplit_sequence(x)
     if p.variant == "plain":
         return p.w_out(act(p.w_in(x)))
     return p.w_down(act(p.w_gate(x)) * p.w_up(x))

@@ -40,7 +40,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.comms.collectives import Stacked
 
-from .common import ModelConfig, activation_fn, dense_init
+from .common import (ModelConfig, activation_candidate, activation_fn,
+                     dense_init)
 from .mlp import MLP, init_mlp, mlp_forward
 
 _MOE_GROUPS = 1
@@ -161,14 +162,38 @@ def _combine(p: MoE, cfg: ModelConfig, xg: torch.Tensor, ye: torch.Tensor,
     return y
 
 
+def _aux_stats(cfg: ModelConfig, probs: torch.Tensor, onehot: torch.Tensor,
+               dims=(0, 1)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The load-balancing loss's two means over the tokens: each expert's
+    share of the routed choices, and its mean router probability."""
+    g, t, e = probs.shape
+    k = cfg.num_experts_per_tok
+    density = onehot.view(g, t, k, e).sum(2).float().mean(dims)
+    return density, probs.mean(dims)
+
+
 def _aux(cfg: ModelConfig, probs: torch.Tensor, onehot: torch.Tensor,
          dims=(0, 1)) -> torch.Tensor:
     """Switch-style load-balancing loss: over all groups' tokens (a
     scalar), or with dims=1 one per group ([G])."""
-    g, t, e = probs.shape
-    k = cfg.num_experts_per_tok
-    density = onehot.view(g, t, k, e).sum(2).float().mean(dims)
-    return e * (density * probs.mean(dims)).sum(-1)
+    density, pmean = _aux_stats(cfg, probs, onehot, dims)
+    return cfg.num_experts * (density * pmean).sum(-1)
+
+
+def _local_groups(cfg: ModelConfig, x: DTensor) -> bool:
+    """Whether the dry run's activation policy puts one token group on
+    each rank of the batch axes ('moe_tokens': groups over the data
+    shards), and x's rows split into those groups."""
+    mesh = x.device_mesh
+    dpg = 1
+    for i, n in enumerate(mesh.mesh_dim_names):
+        if n != "model":
+            dpg *= mesh.size(i)
+    b, s, d = x.shape
+    t = b * s
+    return (_MOE_GROUPS == dpg > 1 and t % dpg == 0 and b % dpg == 0
+            and activation_candidate((dpg, t // dpg, d), "moe_tokens")
+            is not None)
 
 
 def _moe_forward_sharded(p: MoE, cfg: ModelConfig, x: DTensor
@@ -180,7 +205,14 @@ def _moe_forward_sharded(p: MoE, cfg: ModelConfig, x: DTensor
     then a partial sum over "model", and so is the aux loss, which each
     rank scales by 1 / mp; the gradients of the whole tokens and router
     are partial sums likewise.  Where ff does not divide "model", every
-    rank computes the whole block and the outputs are replicated."""
+    rank computes the whole block and the outputs are replicated.
+
+    Under the dry run's activation policy ('moe_tokens': one token group
+    per rank of the batch axes, `set_moe_groups` = their size) the tokens
+    keep their rows over the batch axes instead: each rank routes and
+    computes its own group, as the reference's grouped dispatch does, the
+    weights' gradients are partial sums over the batch axes too, and the
+    aux loss's two means are averaged over them before their product."""
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     mp = mesh.size(names.index("model")) if "model" in names else 1
@@ -188,14 +220,18 @@ def _moe_forward_sharded(p: MoE, cfg: ModelConfig, x: DTensor
         not cfg.num_shared_experts
         or cfg.moe_d_ff * cfg.num_shared_experts % mp == 0)
     part = Partial() if split else Replicate()
+    grouped = _local_groups(cfg, x)
+    grad_rows = Partial() if grouped else Replicate()
 
-    def on(model_pl):
-        return [model_pl if n == "model" else Replicate() for n in names]
+    def on(model_pl, rows_pl=Replicate()):
+        return [model_pl if n == "model" else rows_pl for n in names]
 
-    def local(t: DTensor, model_pl, grad_pl=None):
-        pl = on(model_pl if split else Replicate())
-        return t.redistribute(mesh, pl).to_local(
-            grad_placements=None if grad_pl is None else on(grad_pl))
+    def local(t: DTensor, model_pl, grad_pl=None, rows=Replicate(),
+              grads=grad_rows):
+        model_pl = model_pl if split else Replicate()
+        return t.redistribute(mesh, on(model_pl, rows)).to_local(
+            grad_placements=on(model_pl if grad_pl is None else grad_pl,
+                               grads))
 
     lp = types.SimpleNamespace(
         router=local(p.router, Replicate(), part),
@@ -212,23 +248,33 @@ def _moe_forward_sharded(p: MoE, cfg: ModelConfig, x: DTensor
             w_down=functools.partial(F.linear, weight=local(
                 sh.w_down.weight, Shard(1))))
         lp.shared_gate = local(p.shared_gate, Replicate(), part)
-    y, aux = moe_forward(lp, cfg, local(x, Replicate(), part))
-    if split:
-        aux = aux / mp
-    return (DTensor.from_local(y, mesh, on(part), run_check=False),
-            DTensor.from_local(aux, mesh, on(part), run_check=False))
+    rows = Shard(0) if grouped else Replicate()
+    y, probs, onehot = _moe_dense(
+        lp, cfg, local(x, Replicate(), part, rows, rows),
+        1 if grouped else _MOE_GROUPS)
+    y = DTensor.from_local(y, mesh, on(part, rows), run_check=False)
+    if not grouped:
+        aux = _aux(cfg, probs, onehot)
+        if split:
+            aux = aux / mp
+        return y, DTensor.from_local(aux, mesh, on(part), run_check=False)
+    share = mesh.size() // (1 if split else mp)
+    stats = DTensor.from_local(
+        torch.stack(_aux_stats(cfg, probs, onehot)) / share, mesh,
+        on(part, Partial()), run_check=False)
+    stats = stats.redistribute(mesh, on(Replicate()))
+    return y, cfg.num_experts * (stats[0] * stats[1]).sum()
 
 
-def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], load-balance aux loss scalar).
-    DTensor tokens take `_moe_forward_sharded`."""
-    if isinstance(x, DTensor):
-        return _moe_forward_sharded(p, cfg, x)
+def _moe_dense(p: MoE, cfg: ModelConfig, x: torch.Tensor, groups: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grouped dense dispatch of x [B, S, d] in `groups` groups (1
+    where they do not divide the tokens) -> (out [B, S, d], router probs
+    [G, T/G, E], choices one-hot [G, T/G * k, E])."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     t = b * s
-    groups = _MOE_GROUPS if t % _MOE_GROUPS == 0 else 1
+    groups = groups if t % groups == 0 else 1
     tl = t // groups
     xg = x.reshape(groups, tl, d)
     cap = _capacity(tl, cfg)
@@ -241,7 +287,17 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor
     ye = ye.view(e, groups, cap, d).transpose(0, 1).reshape(
         groups, e * cap, d)
     y = _combine(p, cfg, xg, ye, slot, weights)
-    return y.reshape(b, s, d), _aux(cfg, probs, onehot)
+    return y.reshape(b, s, d), probs, onehot
+
+
+def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], load-balance aux loss scalar).
+    DTensor tokens take `_moe_forward_sharded`."""
+    if isinstance(x, DTensor):
+        return _moe_forward_sharded(p, cfg, x)
+    y, probs, onehot = _moe_dense(p, cfg, x, _MOE_GROUPS)
+    return y, _aux(cfg, probs, onehot)
 
 
 # ---------------------------------------------------------------------- #

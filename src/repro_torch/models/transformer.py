@@ -22,9 +22,10 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (Attention, MaskSpec, attention_forward,
+from .attention import (Attention, MaskSpec, _placed, attention_forward,
                         init_attention, ring_positions)
-from .common import ModelConfig, dense_init, resolve_device, rms_norm, softcap
+from .common import (ModelConfig, constrain, dense_init, resolve_device,
+                     rms_norm, softcap, unsplit_sequence)
 from .mlp import MLP, init_mlp, mlp_forward
 from .moe import MoE, init_moe, moe_forward
 
@@ -90,7 +91,7 @@ def decoder_layer(p: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
         logit_cap=cfg.attn_logit_softcap)
     if cfg.sandwich_norm:
         attn_out = rms_norm(attn_out, p.ln_attn_post, cfg.norm_eps)
-    h = h + attn_out
+    h = h + constrain(attn_out, "residual")
     mlp_in = rms_norm(h, p.ln_mlp, cfg.norm_eps)
     aux = 0.0
     if cfg.num_experts:
@@ -99,7 +100,7 @@ def decoder_layer(p: DecoderLayer, cfg: ModelConfig, h: torch.Tensor,
         mlp_out = mlp_forward(p.mlp, mlp_in, cfg.activation)
     if cfg.sandwich_norm:
         mlp_out = rms_norm(mlp_out, p.ln_mlp_post, cfg.norm_eps)
-    return h + mlp_out, new_cache, aux
+    return h + constrain(mlp_out, "residual"), new_cache, aux
 
 
 # ---------------------------------------------------------------------- #
@@ -204,6 +205,7 @@ def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,
             cache = None if caches is None else (caches[0][i], caches[1][i])
             h, _, aux = decoder_layer(layer, cfg, h, positions, spec,
                                       cache, cache_index, cache_positions)
+        h = constrain(h, "residual")
         aux_sum = aux_sum + aux
     return h, caches, aux_sum
 
@@ -260,15 +262,16 @@ def embed_tokens(params: DecoderLM, cfg: ModelConfig,
     if cfg.scale_embeddings:
         h = h * torch.tensor(math.sqrt(cfg.d_model),
                              dtype=torch.float32).to(h.dtype)
-    return h
+    return constrain(h, "residual")
 
 
 def _project(cfg: ModelConfig, h: torch.Tensor, final_norm: torch.Tensor,
              w_out: torch.Tensor) -> torch.Tensor:
     """fp32 logits of h under the final norm and the [V, d] output
     projection, with the final softcap."""
-    h = rms_norm(h, final_norm, cfg.norm_eps)
-    return softcap((h @ w_out.T).float(), cfg.final_logit_softcap)
+    h = unsplit_sequence(rms_norm(h, final_norm, cfg.norm_eps))
+    logits = constrain(h @ w_out.T, "logits")
+    return softcap(logits.float(), cfg.final_logit_softcap)
 
 
 def _output_weight(params: DecoderLM) -> torch.Tensor:
@@ -297,6 +300,49 @@ def _settled(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _gold_sharded(logits: DTensor, safe: torch.Tensor) -> DTensor:
+    """logits[..., safe] of DTensor logits [B,c,V] whose vocab is split
+    over "model", on local tensors: each rank picks the labels in its own
+    vocab rows and zeroes the others, a partial sum over "model" (reduced
+    here).  DTensor's own gather would do the same forward, but its
+    backward allocates the whole [B,c,V] gradient on every rank."""
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    lab_pl, out_pl = [], []
+    for i, name in enumerate(names):
+        if name == "model":
+            lab_pl.append(Replicate())
+            out_pl.append(Partial())
+        else:
+            rows = logits.placements[i]
+            lab_pl.append(rows)
+            out_pl.append(rows)
+    lab = safe if isinstance(safe, DTensor) else DTensor.from_local(
+        safe, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    lab = _placed(lab, lab_pl).to_local()
+    local = logits.to_local()
+    vl = local.shape[-1]
+    ids = lab - mesh.get_local_rank("model") * vl
+    inside = (ids >= 0) & (ids < vl)
+    g = torch.gather(local, -1, torch.where(inside, ids, 0)[..., None])
+    g = torch.where(inside[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                      device=g.device))
+    return _settled(DTensor.from_local(g, mesh, out_pl, run_check=False))
+
+
+def _vocab_split(logits: torch.Tensor) -> bool:
+    """A DTensor whose last dim is split over "model" and over nothing
+    else, with no partial placement."""
+    if not isinstance(logits, DTensor):
+        return False
+    last = logits.dim() - 1
+    for n, p in zip(logits.device_mesh.mesh_dim_names, logits.placements):
+        on_vocab = p.is_shard() and p.dim in (-1, last)
+        if p.is_partial() or on_vocab != (n == "model"):
+            return False
+    return True
+
+
 def _chunk_nll(cfg: ModelConfig, hc: torch.Tensor, lc: torch.Tensor,
                final_norm: torch.Tensor, w_out: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -304,7 +350,10 @@ def _chunk_nll(cfg: ModelConfig, hc: torch.Tensor, lc: torch.Tensor,
     valid = lc != -100
     safe = torch.where(valid, lc, 0)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = _settled(torch.gather(logits, -1, safe[..., None]))[..., 0]
+    if _vocab_split(logits):
+        gold = _gold_sharded(logits, safe)[..., 0]
+    else:
+        gold = _settled(torch.gather(logits, -1, safe[..., None]))[..., 0]
     return ((logz - gold) * valid).sum(), valid.sum()
 
 

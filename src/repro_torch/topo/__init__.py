@@ -1,6 +1,6 @@
 """Topology spec grammar and zoo: a copy of src/repro/topo (the TPU
-roofline constants left out), so spec strings resolve alike in both
-packages."""
+roofline constants left out: the card's are `hardware.H100_SXM`), so spec
+strings resolve alike in both packages."""
 from .spec import (  # noqa: F401
     TopologySpec, TopologySpecError, TransformSpec, register_topology,
     register_transform, resolve_topology, topology_families,
@@ -17,3 +17,4 @@ from .zoo import (  # noqa: F401
 from .tpu import (  # noqa: F401
     v5e_pod_topology, multipod_topology, axis_topology_for_mesh,
 )
+from .hardware import H100_SXM, HardwareSpec  # noqa: F401

@@ -3,8 +3,8 @@ resolve alike in both packages: the `v5e` pod torus, the `multipod` model,
 and `axis_topology_for_mesh`, the default model of one mesh axis.
 
 Copied from src/repro/topo/tpu.py without its `HardwareSpec` / `TPU_V5E`
-roofline constants: those are a TPU's numbers, and an H100 spec is ROADMAP
-item A8.
+roofline constants: those are a TPU's numbers; the card's are `H100_SXM` in
+repro_torch/topo/hardware.py.
 """
 from __future__ import annotations
 
