@@ -80,7 +80,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     mamba2-780m's and zamba2-1.2b's prefill shapes (device
                     time per call from a CUDA graph, and eager) beside the
                     bound and the plain version, rotating over inputs
-                    beyond L2.
+                    beyond L2; and at mamba2-780m's shape on a model rank's
+                    own 24, 12 and 3 heads (`local_heads`), as head-slice
+                    views of a [B,S,48,P] tensor and in the placed mixer's
+                    layout, b and c whole: each within the tolerances,
+                    whether `dense_if_unaligned` copied x, b or c, and
+                    device time per call beside the bound.
 14. ssm_model_vs_cpu
                     reduced mamba2-780m and zamba2-1.2b, the same weights on
                     the card (kernel path) and on the CPU (plain path):
@@ -220,7 +225,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     logits torch.equal (else within MESH1_LOGITS_ATOL, the
                     difference printed), flash 36 launches per prefill on
                     local tensors, prefill positions/s and decode tokens/s
-                    of both; gemma2-2b's two train steps through
+                    of both; the same for mamba2-780m (2 x 512 tokens) and
+                    zamba2-1.2b (2 x 256), 8 new tokens, through the placed
+                    Mamba2 mixer: the SSD kernel 48 and 38 launches per
+                    prefill, flash 6 for zamba2; gemma2-2b's two train steps
+                    and one mamba2-780m step of 2 x 512 through
                     `launch.train.run` on the mesh (FSDP+TP placements)
                     against the plain launch within TRAIN_LOSS_RTOL; the
                     per-rank bytes of mixtral-8x7b's serving at TP 2 and 4
@@ -231,17 +240,22 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     layers served over every card (`--model-parallel N`,
                     the params from model rank 0 by the tree broadcast; with
                     more than two cards again with `--inject-fault 0-1`),
-                    and `launch.train --arch qwen3-8b --model-parallel 2
-                    --data-parallel N/2 --steps 3`; requests served, finite
-                    losses, tokens/s, step seconds and peak memory per
-                    card.  With one card it prints that it did not run.
+                    mamba2-780m served over every card, and `launch.train
+                    --arch qwen3-8b --model-parallel 2 --data-parallel N/2
+                    --steps 3` and zamba2-1.2b's 2 steps the same way;
+                    requests served, finite losses, tokens/s, step seconds
+                    and peak memory per card.  With one card it prints that
+                    it did not run.
 
 35. dryrun_cards    `repro_torch.launch.dryrun`'s main with fake CUDA
                     tensors (its default --device cuda), one process per
                     cell started together: qwen3-8b train_4k and
                     prefill_32k on the fake 16x16 mesh, mixtral-8x7b
                     decode_32k on 2x16x16, gemma2-2b long_500k (the
-                    reference's skip): each line OK (or SKIP), exit 0, no
+                    reference's skip), mamba2-780m prefill_32k on 16x16
+                    (the SSD op's fake CUDA path on 3 heads a rank) and
+                    zamba2-1.2b train_4k on 2x16x16: each line OK (or
+                    SKIP), exit 0, no
                     kernel launched; each cell's per-device counts,
                     memory and roofline row, and the card's total memory
                     beside `H100_SXM.hbm_bytes`.
@@ -1225,7 +1239,8 @@ def phase_ssd_vs_plain(seed: int) -> dict:
     main = _ssd_time(gen, SSD_MAIN)
     res.update(main, library_ms=None,
                library="none: no single PyTorch call computes this function",
-               zamba2=_ssd_time(gen, SSD_ZAMBA2))
+               zamba2=_ssd_time(gen, SSD_ZAMBA2),
+               local_heads=_ssd_local_heads(gen))
     emit("ssd_vs_plain", **res)
     torch.cuda.empty_cache()
     return res
@@ -1282,16 +1297,7 @@ def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
     eager_ms = cuda_ms(kernel, iters=10) / sets
     kernel_ms = (kernel_ms + graph_ms(kernel, sets)) / 2
     plain_ms = (plain_ms + cuda_ms(plain, iters=3, warmup=1) / sets) / 2
-    bh, chunks, q = m["b"] * m["h"], m["s"] // m["q"], m["q"]
-    # both Q x Q products over the causal pairs i >= j, and the state
-    flops = 2 * bh * chunks * (q * (q + 1) // 2 * (m["n"] + m["p"])
-                               + q * m["p"] * m["n"])
-    x, dt, a, b, c = inputs[0]
-    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
-              + a.numel() * 4 + (b.numel() + c.numel()) * b.element_size()
-              + bh * chunks * m["p"] * m["n"] * 4)   # x, y, dt, a, b, c, states
-    bound = {"operations": flops / PEAK_BF16_FLOPS * 1e3,
-             "bytes": nbytes / PEAK_BYTES * 1e3}
+    flops, nbytes, bound = _ssd_bound(m)
     bound_by = max(bound, key=bound.get)
     return dict(main_shape=m, main_dtype="bfloat16", main_max_abs_err=err,
                 kernel_ms=kernel_ms, kernel_eager_ms=eager_ms,
@@ -1304,6 +1310,82 @@ def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
                 bound_fraction=bound[bound_by] / kernel_ms,
                 fp32_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3,
                 timed_sets=sets)
+
+
+def _ssd_bound(m: dict) -> tuple:
+    """(FLOPs, bytes, {"operations": ms, "bytes": ms}) of one bf16 SSD block
+    call at shape m: C.B^T over the causal pairs i >= j once per batch row
+    (b and c are shared by every head, one group), and per head its
+    masked product with x and the state; x and y (bf16), dt, a (f32), b,
+    c (bf16) and the f32 states each moved once."""
+    bh, chunks, q = m["b"] * m["h"], m["s"] // m["q"], m["q"]
+    pairs = q * (q + 1) // 2
+    flops = 2 * chunks * (m["b"] * pairs * m["n"]
+                          + bh * (pairs * m["p"] + q * m["p"] * m["n"]))
+    nbytes = (2 * 2 * bh * m["s"] * m["p"] + 4 * bh * m["s"] + 4 * m["h"]
+              + 2 * 2 * m["b"] * m["s"] * m["n"]
+              + 4 * bh * chunks * m["p"] * m["n"])
+    return flops, nbytes, {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+                           "bytes": nbytes / PEAK_BYTES * 1e3}
+
+
+# mamba2-780m's 48 heads over a model axis of 2, 4 and 16 (the placed
+# mixer runs the SSD block on each rank's own heads)
+SSD_LOCAL_HEADS = (24, 12, 3)
+
+
+def _ssd_local_heads(gen, sets: int = 4) -> list:
+    """The SSD block at mamba2-780m's prefill shape on a model rank's own
+    heads, bf16: the last rank's heads of a [B,S,48,P] tensor as a view
+    (b and c whole), and the mixer's own layout (x, b and c as views of
+    one [B,S,hl*P+2N] conv output).  Each against the plain version to
+    phase 13's tolerances, whether `dense_if_unaligned` copied x, b or c,
+    and device time per call from a CUDA graph over `sets` input sets,
+    beside the bound."""
+    from repro_torch.kernels import ssd_chunk_intra_bshp
+    from repro_torch.kernels.ssd_scan import dense_if_unaligned
+    m = SSD_MAIN
+    full = [_ssd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
+                        torch.bfloat16) for _ in range(sets)]
+    out = []
+    for hl in SSD_LOCAL_HEADS:
+        heads = slice(m["h"] - hl, m["h"])          # the last rank's
+        width = hl * m["p"]
+
+        def views(x, dt, a, b, c, layout):
+            if layout == "head_slice":
+                return x[:, :, heads], dt[:, :, heads], a[heads], b, c
+            xbc = torch.cat([x[:, :, heads].reshape(m["b"], m["s"], width),
+                             b, c], dim=-1)
+            return (xbc[..., :width].view(m["b"], m["s"], hl, m["p"]),
+                    dt[:, :, heads], a[heads], xbc[..., width:width + m["n"]],
+                    xbc[..., width + m["n"]:])
+        for layout in ("head_slice", "mixer"):
+            inputs = [views(*f, layout) for f in full]
+            err, ok, _ = _ssd_err(
+                ssd_chunk_intra_bshp(*inputs[0], m["q"]),
+                ssd_chunk_intra_bshp(*inputs[0], m["q"], plain=True),
+                torch.bfloat16)
+            assert ok, (hl, layout, err)
+            x, _, _, b, c = inputs[0]
+            kv = (x.transpose(1, 2), b[:, None], c[:, None])
+            copied = [n for n, t, d in zip("xbc", kv, dense_if_unaligned(*kv))
+                      if d is not t]
+
+            def kernel():
+                for args in inputs:
+                    ssd_chunk_intra_bshp(*args, m["q"])
+            kernel_ms = graph_ms(kernel, sets)
+            local = dict(m, h=hl)
+            flops, nbytes, bound = _ssd_bound(local)
+            bound_by = max(bound, key=bound.get)
+            out.append(dict(heads=hl, of=m["h"], layout=layout,
+                            shape=local, max_abs_err=err, copied=copied,
+                            kernel_ms=kernel_ms, bound_ms=bound[bound_by],
+                            bound_by=bound_by,
+                            bound_fraction=bound[bound_by] / kernel_ms))
+            del inputs
+    return out
 
 
 def phase_ssm_model_vs_cpu(seed: int) -> None:
@@ -2451,19 +2533,108 @@ def _rank_bytes() -> list:
     return out
 
 
+def _serve_both(args, mesh, prompts, model, kernels) -> dict:
+    """`launch.serve.serve` of `prompts` on the plain path and on `mesh`,
+    each with every kernel's count from 0: per path its launches, rates,
+    peak memory and new tokens; then the first batch's prefill logits of
+    both compared (torch.equal, else within MESH1_LOGITS_ATOL) and the
+    tokens asserted equal."""
+    from repro_torch.launch import serve as launch_serve
+    serve = {}
+    for path in ("plain", "mesh"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        engine, done = launch_serve.serve(
+            args, mesh=mesh if path == "mesh" else None, prompts=prompts)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        st = engine.stats
+        serve[path] = dict(
+            wall_s=wall, launches=launches,
+            prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+            prefill_tok_per_s=st["prefill_tokens"] / st["prefill_s"],
+            decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+            / 1e9,
+            tokens=[[int(t) for t in c.tokens[c.prompt_len:]]
+                    for c in done],
+            logits=_first_logits(model, engine.params,
+                                 prompts[:args.batch_size]).cpu())
+        del engine, done
+    la, lb = serve["plain"].pop("logits"), serve["mesh"].pop("logits")
+    assert torch.isfinite(lb).all()
+    logits_equal = torch.equal(la, lb)
+    logits_err = float((la - lb).abs().max())
+    assert logits_equal or logits_err <= MESH1_LOGITS_ATOL, logits_err
+    assert serve["mesh"]["tokens"] == serve["plain"]["tokens"]
+    torch.cuda.empty_cache()
+    return dict(serve=serve, tokens_equal=True,
+                first_logits_equal=logits_equal,
+                first_logits_max_abs_diff=logits_err)
+
+
+def _train_both(argv: list, mesh, kernels) -> dict:
+    """`launch.train.run` of `argv` on the plain path and on `mesh` (FSDP+TP
+    placements), each with every kernel's count from 0: losses within
+    TRAIN_LOSS_RTOL of each other, finite, and no kernel launched (under
+    autograd attention and the SSD block take their plain paths)."""
+    from repro_torch.launch import train as launch_train
+    train = {}
+    for path in ("plain", "mesh"):
+        ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        try:
+            with _SkipCheckpointWrites():
+                records = launch_train.run(
+                    launch_train.build_parser().parse_args(
+                        argv + ["--ckpt-dir", ckpt]),
+                    mesh=mesh if path == "mesh" else None)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        train[path] = dict(
+            launches={k.name: k.launches for k in kernels},
+            losses=[r["loss"] for r in records],
+            step_s=[r["seconds"] for r in records],
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+            / 1e9)
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(
+        train["plain"]["losses"], train["mesh"]["losses"]))
+    assert all(math.isfinite(l) for l in train["mesh"]["losses"])
+    assert not any(train["mesh"]["launches"].values())
+    assert loss_err <= TRAIN_LOSS_RTOL, loss_err
+    torch.cuda.empty_cache()
+    return dict(max_rel_loss_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
+                **train)
+
+
+# the ssm and hybrid families on the 1 x 1 mesh: prompts whose padded
+# length is the config's chunk, so every prefill takes the SSD kernel
+MESH1_SSM = {"mamba2-780m": (512, 512), "zamba2-1.2b": (256, 256)}
+MESH1_SSM_NEW_TOKENS = 8
+MESH1_SSM_TRAIN = ["--arch", "mamba2-780m", "--steps", "1",
+                   "--global-batch", "2", "--seq", "512"]
+
+
 def phase_model_parallel_mesh1(seed: int) -> dict:
-    """qwen3-8b served and gemma2-2b trained through the placed path on a
-    1 x 1 ("data", "model") mesh (NCCL at world 1, every param a DTensor),
-    each beside the plain path in the same call."""
+    """qwen3-8b, mamba2-780m and zamba2-1.2b served and gemma2-2b and
+    mamba2-780m trained through the placed path on a 1 x 1 ("data",
+    "model") mesh (NCCL at world 1, every param a DTensor), each beside
+    the plain path in the same call."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
                                      SSD_KERNEL)
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
+    from repro_torch.models.hybrid import num_shared_sites
     kernels = (FLASH_KERNEL, CHUNK_ACCUM_KERNEL, SSD_KERNEL)
     if DEV == "cuda":
         torch.cuda.set_device(0)
@@ -2474,7 +2645,6 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
     try:
         mesh = make_mesh(1, 1, DEV)
         cfg = get_config("qwen3-8b")
-        model = build_model(cfg)
         rng = np.random.default_rng(seed)
         prompts = [rng.integers(1, cfg.vocab_size, n, dtype=np.int32)
                    for n in SERVE_PROMPTS]
@@ -2482,86 +2652,55 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
             ["--arch", cfg.name, "--device", DEV, "--seed", str(seed),
              "--batch-size", "2", "--new-tokens", "16", "--max-len", "2048"])
         batches = -(-len(prompts) // args.batch_size)
-        serve = {}
-        for path in ("plain", "mesh"):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            for k in kernels:
-                k.launches = 0
-            t0 = time.perf_counter()
-            engine, done = launch_serve.serve(
-                args, mesh=mesh if path == "mesh" else None, prompts=prompts)
-            wall = time.perf_counter() - t0
-            launches = {k.name: k.launches for k in kernels}
-            st = engine.stats
-            serve[path] = dict(
-                wall_s=wall, launches=launches,
-                prefill_s=st["prefill_s"], decode_s=st["decode_s"],
-                prefill_tok_per_s=st["prefill_tokens"] / st["prefill_s"],
-                decode_tok_per_s=st["decode_tokens"] / st["decode_s"],
-                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-                / 1e9,
-                tokens=[[int(t) for t in c.tokens[c.prompt_len:]]
-                        for c in done],
-                logits=_first_logits(model, engine.params,
-                                     prompts[:args.batch_size]).cpu())
-            del engine, done
-        for path in serve:      # flash once per layer per prefill, no other
-            assert serve[path]["launches"] == {
-                "flash_attention": cfg.num_layers * batches, "chunk_accum": 0,
-                "ssd_chunk": 0}, (path, serve[path]["launches"])
-        la, lb = serve["plain"].pop("logits"), serve["mesh"].pop("logits")
-        assert torch.isfinite(lb).all()
-        logits_equal = torch.equal(la, lb)
-        logits_err = float((la - lb).abs().max())
-        assert logits_equal or logits_err <= MESH1_LOGITS_ATOL, logits_err
-        assert serve["mesh"]["tokens"] == serve["plain"]["tokens"]
-        torch.cuda.empty_cache()
+        served = _serve_both(args, mesh, prompts, build_model(cfg), kernels)
+        for path in served["serve"]:  # flash once per layer per prefill
+            assert served["serve"][path]["launches"] == {
+                "flash_attention": cfg.num_layers * batches,
+                "chunk_accum": 0, "ssd_chunk": 0}, path
 
-        train = {}
-        argv = ["--arch", "gemma2-2b", "--steps", str(MESH1_TRAIN_STEPS),
-                "--global-batch", "4", "--seq", "512", "--device", DEV,
-                "--seed", str(seed)]
-        for path in ("plain", "mesh"):
-            ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            for k in kernels:
-                k.launches = 0
-            try:
-                with _SkipCheckpointWrites():
-                    records = launch_train.run(
-                        launch_train.build_parser().parse_args(
-                            argv + ["--ckpt-dir", ckpt]),
-                        mesh=mesh if path == "mesh" else None)
-            finally:
-                shutil.rmtree(ckpt, ignore_errors=True)
-            train[path] = dict(
-                launches={k.name: k.launches for k in kernels},
-                losses=[r["loss"] for r in records],
-                step_s=[r["seconds"] for r in records],
-                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-                / 1e9)
-        loss_err = max(abs(a - b) / abs(a) for a, b in zip(
-            train["plain"]["losses"], train["mesh"]["losses"]))
-        assert all(math.isfinite(l) for l in train["mesh"]["losses"])
-        # under autograd attention takes the plain path; one rank
-        assert not any(train["mesh"]["launches"].values())
-        assert loss_err <= TRAIN_LOSS_RTOL, loss_err
+        train = _train_both(
+            ["--arch", "gemma2-2b", "--steps", str(MESH1_TRAIN_STEPS),
+             "--global-batch", "4", "--seq", "512", "--device", DEV,
+             "--seed", str(seed)], mesh, kernels)
+
+        ssm = {}
+        for name, plens in MESH1_SSM.items():
+            scfg = get_config(name)
+            rng = np.random.default_rng(seed)
+            sargs = launch_serve.build_parser().parse_args(
+                ["--arch", name, "--device", DEV, "--seed", str(seed),
+                 "--batch-size", str(len(plens)), "--new-tokens",
+                 str(MESH1_SSM_NEW_TOKENS), "--max-len", "1024"])
+            both = _serve_both(sargs, mesh, [
+                rng.integers(1, scfg.vocab_size, n, dtype=np.int32)
+                for n in plens], build_model(scfg), kernels)
+            # one prefill: the SSD kernel once per Mamba2 layer, flash once
+            # per shared-attention site, on local tensors on the mesh
+            sites = num_shared_sites(scfg) if scfg.family == "hybrid" else 0
+            for path in both["serve"]:
+                assert both["serve"][path]["launches"] == {
+                    "flash_attention": sites, "chunk_accum": 0,
+                    "ssd_chunk": scfg.num_layers}, (name, path)
+            ssm[name] = dict(layers=scfg.num_layers, d_model=scfg.d_model,
+                             ssm_chunk=scfg.ssm_chunk, prompts=list(plens),
+                             new_tokens=MESH1_SSM_NEW_TOKENS,
+                             ssd_launches_per_prefill=scfg.num_layers,
+                             flash_launches_per_prefill=sites, **both)
+        ssm_train = _train_both(MESH1_SSM_TRAIN + ["--device", DEV, "--seed",
+                                                   str(seed)], mesh, kernels)
     finally:
         dist.destroy_process_group()
     res = dict(mesh={"data": 1, "model": 1},
                backend="nccl" if DEV == "cuda" else "gloo", arch=cfg.name,
                layers=cfg.num_layers, d_model=cfg.d_model, dtype="bfloat16",
                prompts=list(SERVE_PROMPTS), batch_size=args.batch_size,
-               new_tokens=args.new_tokens, serve=serve,
-               tokens_equal=True, first_logits_equal=logits_equal,
-               first_logits_max_abs_diff=logits_err,
-               flash_launches_per_prefill=serve["mesh"]["launches"][
-                   "flash_attention"] // batches,
+               new_tokens=args.new_tokens, **served,
+               flash_launches_per_prefill=served["serve"]["mesh"][
+                   "launches"]["flash_attention"] // batches,
                train=dict(arch="gemma2-2b", steps=MESH1_TRAIN_STEPS,
-                          global_batch=4, seq=512, max_rel_loss_err=loss_err,
-                          loss_rtol=TRAIN_LOSS_RTOL, **train),
+                          global_batch=4, seq=512, **train),
+               ssm=ssm,
+               ssm_train=dict(argv=MESH1_SSM_TRAIN, **ssm_train),
                rank_bytes=_rank_bytes())
     emit("model_parallel_mesh1", **res)
     torch.cuda.empty_cache()
@@ -2617,8 +2756,9 @@ def _mp_rank(rank: int, world: int, port: int, job: str, argv: list,
 def phase_model_parallel_cards(seed: int) -> None:
     """With two or more cards: mixtral-8x7b served at its full 32 layers
     over every card (the params from model rank 0 by the tree broadcast,
-    healthy and then over a failed link 0-1), and qwen3-8b trained with
-    --model-parallel 2 --data-parallel cards/2."""
+    healthy and then over a failed link 0-1) and mamba2-780m over every
+    card, and qwen3-8b and zamba2-1.2b trained with --model-parallel 2
+    --data-parallel cards/2."""
     cards = torch.cuda.device_count()
     if cards < 2:
         emit("model_parallel_cards", run=False, cards=cards)
@@ -2631,12 +2771,17 @@ def phase_model_parallel_cards(seed: int) -> None:
     runs = [("serve", serve_argv)]
     if cards > 2:   # on a ring of two, link 0-1 is the whole axis
         runs.append(("serve", serve_argv + ["--inject-fault", "0-1"]))
+    runs.append(("serve", ["--arch", "mamba2-780m", "--model-parallel",
+                           str(cards), "--seed", str(seed), "--requests",
+                           "4", "--batch-size", "2", "--new-tokens", "16",
+                           "--prompt-len", "512", "--max-len", "1024"]))
     if cards % 2 == 0:
-        runs.append(("train", [
-            "--arch", "qwen3-8b", "--model-parallel", "2", "--data-parallel",
-            str(cards // 2), "--steps", "3", "--global-batch", str(cards),
-            "--seq", "512", "--seed", str(seed), "--ckpt-dir",
-            tempfile.mkdtemp(prefix="chip_smoke_cards_")]))
+        for arch, steps in (("qwen3-8b", "3"), ("zamba2-1.2b", "2")):
+            runs.append(("train", [
+                "--arch", arch, "--model-parallel", "2", "--data-parallel",
+                str(cards // 2), "--steps", steps, "--global-batch",
+                str(cards), "--seq", "512", "--seed", str(seed),
+                "--ckpt-dir", tempfile.mkdtemp(prefix="chip_smoke_cards_")]))
     runs = [(job, argv + CARDS_ARGV) for job, argv in runs]
     for job, argv in runs:
         with tempfile.TemporaryDirectory() as out:
@@ -2661,7 +2806,9 @@ def phase_model_parallel_cards(seed: int) -> None:
 DRYRUN_CARDS = [("qwen3-8b", "train_4k", "off"),
                 ("qwen3-8b", "prefill_32k", "off"),
                 ("mixtral-8x7b", "decode_32k", "on"),
-                ("gemma2-2b", "long_500k", "off")]       # a skip
+                ("gemma2-2b", "long_500k", "off"),       # a skip
+                ("mamba2-780m", "prefill_32k", "off"),   # the SSD op's
+                ("zamba2-1.2b", "train_4k", "on")]       # fake, 3 heads
 # the dry run's CLI, then the launches this process made
 _DRYRUN_CHILD = """
 import json, sys
@@ -2919,6 +3066,11 @@ def main() -> int:
             mesh1["serve"]["mesh"]["launches"][name]
         paths[name]["model_parallel_mesh1_train"] = \
             mesh1["train"]["mesh"]["launches"][name]
+        for arch, cell in mesh1["ssm"].items():
+            paths[name][f"model_parallel_mesh1_{arch}"] = \
+                cell["serve"]["mesh"]["launches"][name]
+        paths[name]["model_parallel_mesh1_ssm_train"] = \
+            mesh1["ssm_train"]["mesh"]["launches"][name]
         paths[name]["dryrun_cards"] = sum(c["launches"][name]
                                           for c in dry["cells"])
         paths[name]["roofline_measured"] = measured["launches"][name]

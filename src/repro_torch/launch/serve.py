@@ -34,9 +34,9 @@ through the sequential recurrence.
 --model-parallel N spawns N ranks with torch.multiprocessing (NCCL over N
 cards, N at most the card count; gloo under --device cpu) on a (1, N)
 ("data", "model") mesh, and serves with the params placed by
-`serving_param_specs` as DTensors (tensor parallelism; the dense, moe, vlm
-and audio families).  Unless --no-broadcast-params is given, only model
-rank 0 makes the weights from --seed: every parameter reaches every rank
+`serving_param_specs` as DTensors (tensor parallelism, every family).
+Unless --no-broadcast-params is given, only model rank 0 makes the
+weights from --seed: every parameter reaches every rank
 through the paper's `tree_broadcast` over the model axis's broadcast
 program (`CollectiveContext.broadcast_program("model")`), one parameter at
 a time, and only then is each rank's shard kept, so a model larger than
@@ -107,14 +107,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     import torch
     import torch.multiprocessing as mproc
 
-    from repro_torch.configs import get_config, reduced_config
     from repro_torch.models.common import resolve_device
 
-    from .sharding import refuse_unsharded_family
     from .train import _free_port
 
-    refuse_unsharded_family(reduced_config(args.arch) if args.reduced
-                            else get_config(args.arch), mp)
     if resolve_device(args.device).type == "cuda" \
             and mp > torch.cuda.device_count():
         raise SystemExit(f"--model-parallel {mp} needs {mp} cards, have "
@@ -221,9 +217,6 @@ def serve(args: argparse.Namespace, rank: int = 0, world: int = 1,
         mesh = make_mesh(1, world, device.type)
     mp = 1 if mesh is None else mesh.size(
         mesh.mesh_dim_names.index("model"))
-    if mp > 1:
-        from .sharding import refuse_unsharded_family
-        refuse_unsharded_family(cfg, mp)
     ctx = None
     if args.schedule_cache or (mp > 1 and not args.no_broadcast_params):
         # serving restarts are frequent: warm the artifact cache with the

@@ -246,20 +246,6 @@ def set_parameter(module: nn.Module, name: str, value: torch.Tensor
             nn.Parameter(value))
 
 
-SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio")
-
-
-def refuse_unsharded_family(cfg, mp: int) -> None:
-    """SystemExit for a family this port does not shard over "model"."""
-    if mp > 1 and cfg.family not in SHARDED_FAMILIES:
-        raise SystemExit(
-            f"--model-parallel {mp}: the {cfg.family} family ({cfg.name}) "
-            f"is not sharded over the model axis yet (ROADMAP A7c: the "
-            f"reference splits Mamba2's in_proj output, which concatenates "
-            f"z, x, B, C and dt, so a shard would cross them before the SSD "
-            f"kernel); run it with --model-parallel 1")
-
-
 def distribute_module(module: nn.Module, mesh, specs: Dict[str, Spec]
                       ) -> nn.Module:
     """Swap every parameter of `module` (whole on every rank alike) for a

@@ -27,9 +27,8 @@ rank draws its rows of the global batch.  --collectives torch (the
 reference's default, its "xla") places params and AdamW state by
 `param_specs(fsdp=True)` as DTensors (FSDP over "data", tensor parallelism
 over "model"), and each gradient comes back reduce-scattered to its
-param's shards; the ssm and hybrid families are not placed (ROADMAP A7c):
-they train at M = 1 only, with whole params on every rank and whole
-gradients all-reduced.
+param's shards; every family, so at M = 1 and D > 1 each trains FSDP over
+a (D, 1) mesh, as the reference does.
 --collectives pipeline (M = 1 only, as in the reference) keeps whole params
 on every rank and reduces gradients with a BucketedAllReduce built from
 the data axis's bandwidth-optimal allreduce schedule (a bidirectional
@@ -108,11 +107,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.collectives == "pipeline" and mp != 1:
         raise SystemExit("--collectives pipeline requires "
                          "--model-parallel 1")
-    from repro_torch.configs import get_config, reduced_config
-
-    from .sharding import refuse_unsharded_family
-    refuse_unsharded_family(reduced_config(args.arch) if args.reduced
-                            else get_config(args.arch), mp)
     world = dp * mp
     if world == 1:
         run(args)
@@ -204,8 +198,6 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
                                    host_batch_slice, init_train_state,
                                    make_train_step)
 
-    from .sharding import SHARDED_FAMILIES
-
     dp, mp = args.data_parallel, args.model_parallel
     device = resolve_device(args.device)
     if device.type == "cuda" and world > 1:
@@ -214,8 +206,7 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     model = build_model(cfg, remat=True)
-    if mesh is None and world > 1 and args.collectives == "torch" \
-            and cfg.family in SHARDED_FAMILIES:
+    if mesh is None and world > 1 and args.collectives == "torch":
         from .mesh import make_mesh
         mesh = make_mesh(dp, mp, device.type)
     if mesh is not None:
@@ -265,13 +256,6 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
 
             def grad_reduce(tree):
                 return {k: v / world for k, v in red(tree).items()}
-        elif world > 1 and mesh is None:
-            # the ssm and hybrid families are not placed (ROADMAP A7c):
-            # whole params on every data rank, whole gradients all-reduced
-            def grad_reduce(tree):
-                for v in tree.values():
-                    torch.distributed.all_reduce(v)
-                return {k: v / world for k, v in tree.items()}
         live["step"] = make_train_step(model, tc, grad_reduce=grad_reduce)
 
     build_step()

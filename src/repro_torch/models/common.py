@@ -271,9 +271,11 @@ _DRAWS: Optional[list] = None
 
 @contextlib.contextmanager
 def recorded_draws():
-    """Within it, `dense_init` draws nothing and appends (w, scale) to the
-    list it yields: the order and scales of an init's draws, taken on the
-    meta device (`Model.init_leaves` replays them one leaf at a time)."""
+    """Within it, `dense_init` draws nothing and appends (w, scale, None)
+    to the list it yields, and `const_init` fills nothing and appends (w,
+    None, value): the order and scales of an init's draws and its constant
+    fills, taken on the meta device (`Model.init_leaves` replays them one
+    leaf at a time)."""
     global _DRAWS
     outer, _DRAWS = _DRAWS, []
     try:
@@ -297,10 +299,20 @@ def dense_init(w: torch.Tensor, fan_in: int, generator: torch.Generator,
     fp32 on w's device and rounded to w's dtype."""
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
     if _DRAWS is not None:
-        _DRAWS.append((w, float(scale)))
+        _DRAWS.append((w, float(scale), None))
         return w
     w.copy_(draw_normal(w.shape, scale, generator, w.device))
     return w
+
+
+@torch.no_grad()
+def const_init(w: torch.Tensor, value: float) -> torch.Tensor:
+    """Fill w in place with `value` (a weight that starts neither drawn nor
+    zero)."""
+    if _DRAWS is not None:
+        _DRAWS.append((w, None, float(value)))
+        return w
+    return w.fill_(value)
 
 
 # ---------------------------------------------------------------------- #

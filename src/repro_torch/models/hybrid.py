@@ -16,6 +16,13 @@ reference returns new arrays, with the conv state in the activations'
 dtype; the values are the same).  Under `remat` each Mamba2 layer is
 recomputed in the backward pass (`transformer.remat_apply`); the shared
 block is not, as in the reference.
+
+Under tensor parallelism (DTensor params, `repro_torch.launch.sharding`)
+the stacked states are DTensors placed by `decode_state_specs`, whose
+layer dim is never split: each layer's state is read and written through
+the stack's local tensor, so no DTensor op runs on a state per step.
+Each block's output joins the residual stream in the dry run's
+'residual' layout (`constrain`), as the dense family's do.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 from .attention import CAUSAL, Attention, attention_forward, init_attention
 from .common import (ModelConfig, constrain, dense_init, resolve_device,
@@ -110,7 +118,26 @@ def _ssm_out(layer: SSMLayer, cfg: ModelConfig, h: torch.Tensor
     """One residual Mamba2 layer from a zero state (training)."""
     out, _ = mamba2_forward(layer.mamba, cfg,
                             rms_norm(h, layer.ln, cfg.norm_eps))
-    return h + out
+    return h + constrain(out, "residual")
+
+
+def _layer_state(stack: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer i of a stacked state: a view; of a DTensor stack, a DTensor
+    over its local tensor's layer i."""
+    if not isinstance(stack, DTensor):
+        return stack[i]
+    return DTensor.from_local(stack.to_local()[i], stack.device_mesh, [
+        Shard(p.dim - 1) if p.is_shard() else p for p in stack.placements],
+        run_check=False)
+
+
+def _write_layer(stack: torch.Tensor, i: int, new: torch.Tensor) -> None:
+    """stack[i] = new in place (a DTensor through its local tensor: `new`
+    has the layer's placements)."""
+    if isinstance(stack, DTensor):
+        stack.to_local()[i].copy_(new.to_local())
+    else:
+        stack[i].copy_(new)
 
 
 def _ssm_layer(layer: SSMLayer, cfg: ModelConfig, h: torch.Tensor,
@@ -124,12 +151,12 @@ def _ssm_layer(layer: SSMLayer, cfg: ModelConfig, h: torch.Tensor,
                 else _ssm_out(layer, cfg, h))
     if remat:
         raise ValueError("remat is for training, which runs without states")
-    out, (conv, ssm) = mamba2_forward(layer.mamba, cfg,
-                                      rms_norm(h, layer.ln, cfg.norm_eps),
-                                      (states[0][i], states[1][i]))
-    states[0][i].copy_(conv)
-    states[1][i].copy_(ssm)
-    return h + out
+    out, (conv, ssm) = mamba2_forward(
+        layer.mamba, cfg, rms_norm(h, layer.ln, cfg.norm_eps),
+        (_layer_state(states[0], i), _layer_state(states[1], i)))
+    _write_layer(states[0], i, conv)
+    _write_layer(states[1], i, ssm)
+    return h + constrain(out, "residual")
 
 
 def ssm_stack(params: SSMLM, cfg: ModelConfig, h: torch.Tensor,
@@ -194,9 +221,10 @@ def _shared_block(params: HybridLM, cfg: ModelConfig, h: torch.Tensor,
     a_out, _ = attention_forward(
         sp.attn, cfg, rms_norm(h, sp.ln_attn, cfg.norm_eps), positions,
         CAUSAL, cache=cache, cache_index=cache_index)
-    h = h + a_out
+    h = h + constrain(a_out, "residual")
     m_in = rms_norm(h, sp.ln_mlp, cfg.norm_eps)
-    return h + mlp_forward(sp.mlp, m_in, cfg.activation)
+    return h + constrain(mlp_forward(sp.mlp, m_in, cfg.activation),
+                         "residual")
 
 
 def hybrid_stack(params: HybridLM, cfg: ModelConfig, h: torch.Tensor,

@@ -75,30 +75,31 @@ class Model:
                     ) -> Tuple[nn.Module, Iterator[Tuple[str, torch.Tensor]]]:
         """`init(seed, dtype, device)` one parameter at a time: (the module
         on the meta device, an iterator of (name, whole tensor on
-        `device`)) in the order `init` draws them, then the parameters it
-        zeroes.  With draw=False the tensors are left empty (a rank that
-        receives the weights from another).  Only one whole parameter need
-        be held at a time, so a model larger than one card can be placed
-        as it is made.  For the families whose every weight `init` either
-        draws or zeroes (dense, moe, vlm, audio)."""
-        if self.cfg.family not in ("dense", "moe", "vlm", "audio"):
-            raise ValueError(f"init_leaves: family {self.cfg.family} sets "
-                             f"weights that are neither drawn nor zero")
+        `device`)) in the order `init` draws or fills them, then the
+        parameters it zeroes.  With draw=False the drawn tensors are left
+        empty (a rank that receives the weights from another).  Only one
+        whole parameter need be held at a time, so a model larger than one
+        card can be placed as it is made."""
         device = resolve_device(device)
         with recorded_draws() as draws:
             meta = self._init_fn()(self.cfg, None, dtype, "meta")
         names = {id(p): n for n, p in meta.named_parameters()}
-        drawn = [(names[id(w)], scale) for w, scale in draws]
+        made = [(names[id(w)], scale, value) for w, scale, value in draws]
 
         def leaves():
             gen = torch.Generator(device=device).manual_seed(seed) \
                 if draw else None
             shapes = dict((n, p.shape) for n, p in meta.named_parameters())
-            for name, scale in drawn:
-                yield name, (draw_normal(shapes[name], scale, gen, device)
-                             .to(dtype) if draw else torch.empty(
-                                 shapes[name], dtype=dtype, device=device))
-            seen = {n for n, _ in drawn}
+            for name, scale, value in made:
+                if scale is None:
+                    yield name, torch.full(shapes[name], value, dtype=dtype,
+                                           device=device)
+                else:
+                    yield name, (draw_normal(shapes[name], scale, gen,
+                                             device).to(dtype) if draw
+                                 else torch.empty(shapes[name], dtype=dtype,
+                                                  device=device))
+            seen = {n for n, _, _ in made}
             for name, shape in shapes.items():
                 if name not in seen:
                     yield name, torch.zeros(shape, dtype=dtype,

@@ -1,11 +1,12 @@
 """The port's dry run (repro_torch.launch.dryrun) on fake meshes: cells of
-the dense, moe, vlm and audio families at their published widths and 2
-layers on the 16x16 and 2x16x16 meshes of a "fake" process group, the
-reference's skips, the ssm family's refusal (ROADMAP A7c), the argument
-bytes of a reduced train cell against the reference's sharding specs and
-its JAX lowering, and the activation policy's absence on the launchers'
-paths.  The fake tensors lie on the CPU: a CPU-only PyTorch cannot index
-a fake CUDA tensor (the card's machine runs --device cuda)."""
+every family at their published widths and 2 layers (zamba2 at 6, its
+first shared-attention site) on the 16x16 and 2x16x16 meshes of a "fake"
+process group, the reference's skips, the CLI's records and its exit code
+on a failing cell, the argument bytes of a reduced train cell against the
+reference's sharding specs and its JAX lowering, and the activation
+policy's absence on the launchers' paths.  The fake tensors lie on the
+CPU: a CPU-only PyTorch cannot index a fake CUDA tensor (the card's
+machine runs --device cuda)."""
 import dataclasses
 import json
 import os
@@ -49,22 +50,27 @@ def no_process_group():
         dist.destroy_process_group()
 
 
-# one arch of each family the model axis shards: one shape of each kind
-# among them on 16x16, and a decode of each on 2x16x16 (a decode cell
-# takes seconds; a prefill_32k cell ~25 s at 2 layers on the CPU, so one
-# is run)
+# one arch of each family: one shape of each kind among them on 16x16, and
+# a decode of each on 2x16x16 (a decode cell takes seconds; a prefill_32k
+# cell ~25 s at 2 layers on the CPU, so one of attention is run); mamba2's
+# train and long_500k, zamba2's prefill (the SSD op and flash's) and decode
 ARCHS = ("qwen3-8b", "qwen2-moe-a2.7b", "paligemma-3b", "whisper-medium")
 CELLS = [("qwen3-8b", "train_4k", False),
          ("qwen2-moe-a2.7b", "train_4k", False),
          ("paligemma-3b", "prefill_32k", False),
          ("whisper-medium", "decode_32k", False)] + \
-    [(arch, "decode_32k", True) for arch in ARCHS]
+    [(arch, "decode_32k", True) for arch in ARCHS] + \
+    [("mamba2-780m", "train_4k", False), ("mamba2-780m", "long_500k", True),
+     ("zamba2-1.2b", "prefill_32k", False),
+     ("zamba2-1.2b", "decode_32k", True)]
+# zamba2's shared block comes after every 6 Mamba2 layers: 2 would cut it
+LAYERS = {"zamba2-1.2b": 6}
 
 
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
 def test_cell_counts_per_device(arch, shape, multi_pod):
     r = dryrun.lower_cell(arch, shape, multi_pod=multi_pod, device="cpu",
-                          layers=2)
+                          layers=LAYERS.get(arch, 2))
     assert r.ok and r.skip is None, r.error
     assert r.mesh == ("2x16x16" if multi_pod else "16x16")
     rf = r.roofline
@@ -101,21 +107,22 @@ def test_skips_give_the_reference_reasons():
     assert not dist.is_initialized()        # a skip builds no mesh
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
-def test_ssm_cells_fail_naming_the_next_slice(arch):
-    r = dryrun.lower_cell(arch, "decode_32k", multi_pod=True, device="cpu")
-    assert not r.ok and "ROADMAP A7c" in r.error
-    assert dryrun.format_line(r).startswith(f"FAIL {arch}/decode_32k")
-
-
-def test_cli_writes_records_and_exits_1_on_a_failure(tmp_path, capsys):
+def test_cli_writes_records_and_exits_1_on_a_failure(tmp_path, capsys,
+                                                     monkeypatch):
+    """A cell whose step raises is recorded with its traceback, printed as
+    FAIL, and the CLI exits 1."""
+    def fail(*args, **kwargs):
+        raise RuntimeError("injected failure of the step")
+    monkeypatch.setattr(dryrun, "count_step", fail)
     rc = dryrun.main(["--arch", "mamba2-780m", "--shape", "long_500k",
                       "--device", "cpu", "--out", str(tmp_path)])
     assert rc == 1
     rec = json.loads((tmp_path / "mamba2-780m__long_500k__16x16.json")
                      .read_text())
-    assert rec["ok"] is False and "A7c" in rec["error"]
-    assert "0/1 cells OK" in capsys.readouterr().out
+    assert rec["ok"] is False and "injected failure" in rec["error"]
+    out = capsys.readouterr().out
+    assert "FAIL mamba2-780m/long_500k/16x16" in out
+    assert "0/1 cells OK" in out
 
 
 def test_device_cuda_needs_a_cuda_build(monkeypatch):
@@ -170,9 +177,8 @@ def _ref_local_bytes(tree, specs, sizes):
     return total
 
 
-def _port_train_args():
-    cfg = dataclasses.replace(reduced_config("qwen3-8b"),
-                              dtype=torch.bfloat16)
+def _port_train_args(arch="qwen3-8b"):
+    cfg = dataclasses.replace(reduced_config(arch), dtype=torch.bfloat16)
     dryrun.fake_group(4)
     counter, args = dryrun.count_step(cfg, SMALL, make_mesh(2, 2, "cpu"),
                                       "cpu")
@@ -201,7 +207,7 @@ def test_train_argument_bytes_equal_the_reference_specs():
 
 
 _JAX_ARGS = r"""
-import jax, jax.numpy as jnp, json, numpy as np
+import jax, jax.numpy as jnp, json, numpy as np, sys
 from jax.sharding import Mesh
 devices = jax.devices()   # 4 host devices, before the reference's dry run
                           # asks for 512
@@ -209,7 +215,7 @@ from repro.configs import reduced_config
 from repro.configs.shapes import ShapeSpec
 from repro.launch import dryrun
 from repro.models import build_model
-cfg = reduced_config("qwen3-8b")
+cfg = reduced_config(sys.argv[1])
 mesh = Mesh(np.array(devices).reshape(2, 2), ("data", "model"))
 lowered = dryrun._lower_train(build_model(cfg, remat=True), cfg,
                               ShapeSpec("small_train", "train", 64, 4), mesh)
@@ -217,13 +223,15 @@ print(json.dumps(lowered.compile().memory_analysis().argument_size_in_bytes))
 """
 
 
-def test_train_argument_bytes_match_the_jax_lowering():
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mamba2-780m",
+                                  "zamba2-1.2b"])
+def test_train_argument_bytes_match_the_jax_lowering(arch):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run([sys.executable, "-c", _JAX_ARGS], env=env,
+    out = subprocess.run([sys.executable, "-c", _JAX_ARGS, arch], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     ref = json.loads(out.stdout.strip().splitlines()[-1])
-    got = sum(_port_train_args().values())
+    got = sum(_port_train_args(arch).values())
     assert abs(got - ref) <= 0.01 * ref, (got, ref)

@@ -6,7 +6,9 @@ against the reference's one-device train step on the same global batch
 (and, under the supervisor, a crash restored from each rank's shards),
 the tree broadcast of serving's parameters over the model axis (healthy,
 with a failed link, and over the model groups of a (2, 2) mesh), and both
-launchers' --model-parallel paths.
+launchers' --model-parallel paths, every family.  The ssm and hybrid
+families' parity runs through this harness from
+tests/test_torch_ssm_model_parallel.py.
 
 The ranks run in a subprocess (`torch.multiprocessing`, one thread each)
 that writes what the test compares.  Tolerances (float32; the ranks sum
@@ -86,31 +88,32 @@ RANKS_SCRIPT = textwrap.dedent("""
         mesh = make_mesh(1, world, "cpu")
         sizes = mesh_axis_sizes(mesh)
         res = {}
-        for arch in archs:
-            cfg = reduced_config(arch)
+        for key in archs:       # an arch, or "arch:tag" for another input
+            cfg = reduced_config(key.split(":")[0])
             model = build_model(cfg)
             params = from_jax_params(cfg, nested(dict(np.load(
-                os.path.join(out, arch + ".npz")))), device="cpu")
+                os.path.join(out, key + ".npz")))), device="cpu")
             sh.distribute_module(params, mesh,
                                  sh.serving_param_specs(params, sizes))
             feed = {k: torch.from_numpy(v) for k, v in
-                    np.load(os.path.join(out, arch + "_in.npz")).items()}
+                    np.load(os.path.join(out, key + "_in.npz")).items()}
+            s = feed["tokens"].shape[1]
             prefix = cfg.num_image_tokens if cfg.family == "vlm" else 0
-            state = model.init_decode_state(B, S + prefix + 8,
+            state = model.init_decode_state(B, s + prefix + 8,
                                             device="cpu")
             state = sh.distribute_tree(state, mesh, sh.decode_state_specs(
                 state, cfg, sizes))
             with torch.no_grad():
                 state, logits = model.prefill(params, feed, state)
                 logits = whole(logits)
-                res[arch + "/prefill"] = logits.numpy()
+                res[key + "/prefill"] = logits.numpy()
                 for i in range(DECODE_STEPS):
                     tok = torch.argmax(logits[:, -1], -1)[:, None]
-                    res[f"{arch}/tok{i}"] = tok.numpy()
+                    res[f"{key}/tok{i}"] = tok.numpy()
                     logits, state = model.decode_step(params, tok, state,
-                                                      S + prefix + i)
+                                                      s + prefix + i)
                     logits = whole(logits)
-                    res[f"{arch}/decode{i}"] = logits.numpy()
+                    res[f"{key}/decode{i}"] = logits.numpy()
         # the params' tree broadcast over the model axis: rank 0's leaves
         # reach every rank, over the healthy and the degraded program
         ctx = CollectiveContext({"data": 1, "model": world})
@@ -381,41 +384,43 @@ def moment_atol(kind, ported, name):
     return 2 * (1 - B2 ** n) * g_max * GRAD_ATOL
 
 
-@pytest.mark.parametrize("dp,mp", [(2, 2), (1, 4)])
-def test_fsdp_tp_train_matches_the_reference(dp, mp, tmp_path):
-    refs = {}
-    for arch in TRAIN_ARCHS:
-        cfg_j, cfg_t, tree, _ = jax_pair(arch)
-        np.savez(tmp_path / f"{arch}.npz", **flat(tree))
-        opt_kw = dict(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
-        step_j = jax.jit(jax_train_step(
-            jax_build(cfg_j, remat=True),
-            JaxTrainConfig(optimizer=jopt.AdamWConfig(**opt_kw))))
-        pj = jax.tree.map(jnp.asarray, tree)
-        oj = jopt.init_adamw(pj)
-        dj = JaxDataConfig(vocab_size=cfg_t.vocab_size, seq_len=32,
-                           global_batch=4)
-        losses = []
-        for i in range(TRAIN_STEPS):
-            pj, oj, mj = step_j(pj, oj, {"tokens": jnp.asarray(
-                jax_batch_slice(dj, i, 0, 4)["tokens"])})
-            losses.append((float(mj["loss"]), float(mj["token_loss"])))
-        ported = {
-            "param": from_jax_params(cfg_t, jax.tree.map(np.asarray, pj),
-                                     device="cpu"),
-            "mu": from_jax_params(cfg_t, jax.tree.map(np.asarray, oj.mu),
-                                  device="cpu"),
-            "nu": from_jax_params(cfg_t, jax.tree.map(np.asarray, oj.nu),
-                                  device="cpu")}
-        refs[arch] = (losses, ported)
-    got = run_ranks(tmp_path, "train", dp * mp, dp, TRAIN_ARCHS)[0]
+def jax_train_refs(arch, tree):
+    """The reference's one-device train step from `tree`, TRAIN_STEPS
+    steps of 4 x 32 tokens: ([(loss, token loss)], the params and AdamW
+    moments after them as port modules)."""
+    cfg_j, cfg_t = jax_reduced(arch), reduced_config(arch)
+    opt_kw = dict(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    step_j = jax.jit(jax_train_step(
+        jax_build(cfg_j, remat=True),
+        JaxTrainConfig(optimizer=jopt.AdamWConfig(**opt_kw))))
+    pj = jax.tree.map(jnp.asarray, tree)
+    oj = jopt.init_adamw(pj)
+    dj = JaxDataConfig(vocab_size=cfg_t.vocab_size, seq_len=32,
+                       global_batch=4)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        pj, oj, mj = step_j(pj, oj, {"tokens": jnp.asarray(
+            jax_batch_slice(dj, i, 0, 4)["tokens"])})
+        losses.append((float(mj["loss"]), float(mj["token_loss"])))
+    ported = {
+        "param": from_jax_params(cfg_t, jax.tree.map(np.asarray, pj),
+                                 device="cpu"),
+        "mu": from_jax_params(cfg_t, jax.tree.map(np.asarray, oj.mu),
+                              device="cpu"),
+        "nu": from_jax_params(cfg_t, jax.tree.map(np.asarray, oj.nu),
+                              device="cpu")}
+    return losses, ported
+
+
+def check_train(got, refs, first):
+    """Rank 0's records against the references of every arch, and the
+    supervised run of `first` (the harness's first arch)."""
     # the crash after step 2: each rank restores its own shards of the
     # checkpoint at step 2 and replays step 2 as the first pass ran it
     seen = got["supervised"]
     assert seen[:, 0].tolist() == [0, 1, 2, 2, 3]
     assert seen[3, 1] == pytest.approx(seen[2, 1], rel=LOSS_RTOL)
-    assert seen[0, 1] == pytest.approx(refs[TRAIN_ARCHS[0]][0][0][0],
-                                       rel=LOSS_RTOL)
+    assert seen[0, 1] == pytest.approx(refs[first][0][0][0], rel=LOSS_RTOL)
     for arch, (losses, ported) in refs.items():
         for i, (loss, token_loss) in enumerate(losses):
             assert float(got[f"{arch}/loss{i}"]) == pytest.approx(
@@ -435,6 +440,17 @@ def test_fsdp_tp_train_matches_the_reference(dp, mp, tmp_path):
                                                atol=moment_atol(kind, ported,
                                                                 n),
                                                err_msg=n)
+
+
+@pytest.mark.parametrize("dp,mp", [(2, 2), (1, 4)])
+def test_fsdp_tp_train_matches_the_reference(dp, mp, tmp_path):
+    refs = {}
+    for arch in TRAIN_ARCHS:
+        _, _, tree, _ = jax_pair(arch)
+        np.savez(tmp_path / f"{arch}.npz", **flat(tree))
+        refs[arch] = jax_train_refs(arch, tree)
+    got = run_ranks(tmp_path, "train", dp * mp, dp, TRAIN_ARCHS)[0]
+    check_train(got, refs, TRAIN_ARCHS[0])
 
 
 # ---------------------------------------------------------------------- #
@@ -483,8 +499,26 @@ def test_launch_train_pipeline_refuses_model_parallel():
 
 @pytest.mark.parametrize("module,arch", [("train", "mamba2-780m"),
                                          ("serve", "zamba2-1.2b")])
-def test_launchers_refuse_ssm_and_hybrid_model_parallel(module, arch):
-    out = launch(module, "--arch", arch, "--reduced", "--device", "cpu",
-                 "--model-parallel", "2")
-    assert out.returncode != 0
-    assert "ROADMAP A7c" in out.stderr and arch in out.stderr
+def test_launchers_refuse_ssm_and_hybrid_model_parallel(module, arch,
+                                                         tmp_path):
+    """The ssm and hybrid families at --model-parallel 2 (the name is kept
+    from when both launchers refused them): exit 0 with finite losses, or
+    every request served, through the chunked scan (--seq, --prompt-len
+    32 of the reduced chunk 16)."""
+    if module == "train":
+        out = launch(module, "--arch", arch, "--reduced", "--device", "cpu",
+                     "--model-parallel", "2", "--steps", "2",
+                     "--global-batch", "2", "--seq", "32", "--ckpt-dir",
+                     str(tmp_path))
+    else:
+        out = launch(module, "--arch", arch, "--reduced", "--device", "cpu",
+                     "--model-parallel", "2", "--requests", "2",
+                     "--new-tokens", "3", "--prompt-len", "32")
+    assert out.returncode == 0, out.stderr[-3000:]
+    if module == "train":
+        losses = [float(m) for m in re.findall(r"^step \d+: loss (\S+)",
+                                               out.stdout, re.M)]
+        assert len(losses) == 2 and all(np.isfinite(losses)), out.stdout
+        assert out.stdout.splitlines()[0] == "mesh: {'data': 1, 'model': 2}"
+    else:
+        assert out.stdout.count("-> 3 new tokens") == 2, out.stdout
