@@ -253,12 +253,14 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     prefill_32k on the fake 16x16 mesh, mixtral-8x7b
                     decode_32k on 2x16x16, gemma2-2b long_500k (the
                     reference's skip), mamba2-780m prefill_32k on 16x16
-                    (the SSD op's fake CUDA path on 3 heads a rank) and
-                    zamba2-1.2b train_4k on 2x16x16: each line OK (or
-                    SKIP), exit 0, no
-                    kernel launched; each cell's per-device counts,
-                    memory and roofline row, and the card's total memory
-                    beside `H100_SXM.hbm_bytes`.
+                    (the SSD op's fake CUDA path on 3 heads a rank),
+                    zamba2-1.2b train_4k on 2x16x16 and qwen3-8b
+                    decode_32k on 16x16 (its cache split on head_dim:
+                    scores all-reduced, the cache never gathered): each
+                    line OK (or SKIP), exit 0, no kernel launched; each
+                    cell's per-device counts, memory and roofline row,
+                    and the card's total memory beside
+                    `H100_SXM.hbm_bytes`.
 36. roofline_measured
                     `analysis.hlo_count` around real steps on the card:
                     qwen3-8b's prefill of 2 x 1024 tokens at full width
@@ -269,6 +271,13 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     the wall seconds (median of timed calls) and the
                     device-busy seconds (torch.profiler), and the MFU,
                     model FLOPs / (seconds x peak bf16 FLOP/s).
+37. examples        examples/{quickstart,schedule_explorer,serve_lm,
+                    train_lm}_torch.py at their documented flags on the
+                    card (no --device: the default), each in its own
+                    process, started together: exit 0, quickstart's and
+                    schedule_explorer's programs run on stacked ranks
+                    (chunk_accum launches > 0 for quickstart), serve_lm's
+                    6 requests, train_lm's 200 steps; each one's seconds.
 
 Phase 3 also holds flash against its plain version at the serving shapes
 of the vlm and audio families (FAMILY_FLASH) and times them, and gives
@@ -2808,7 +2817,8 @@ DRYRUN_CARDS = [("qwen3-8b", "train_4k", "off"),
                 ("mixtral-8x7b", "decode_32k", "on"),
                 ("gemma2-2b", "long_500k", "off"),       # a skip
                 ("mamba2-780m", "prefill_32k", "off"),   # the SSD op's
-                ("zamba2-1.2b", "train_4k", "on")]       # fake, 3 heads
+                ("zamba2-1.2b", "train_4k", "on"),       # fake, 3 heads
+                ("qwen3-8b", "decode_32k", "off")]       # cache on head_dim
 # the dry run's CLI, then the launches this process made
 _DRYRUN_CHILD = """
 import json, sys
@@ -2997,6 +3007,65 @@ def phase_roofline_measured(seed: int) -> dict:
     return res
 
 
+# phase 37: the port's examples at their documented flags
+EXAMPLES = [["quickstart_torch.py"],
+            ["schedule_explorer_torch.py"],
+            ["serve_lm_torch.py", "--arch", "mixtral-8x7b"],
+            ["train_lm_torch.py", "--arch", "qwen3-8b", "--steps", "200"]]
+
+
+def phase_examples() -> dict:
+    """examples/*_torch.py on the card (no --device: the default), each in
+    its own process, all started together: each must exit 0.  quickstart
+    and schedule_explorer run their programs on stacked ranks and print
+    their chunk_accum launches; serve_lm prints its flash launches."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for cmd in EXAMPLES:
+            extra = ["--ckpt-dir", os.path.join(tmp, "ckpt")] \
+                if cmd[0] == "train_lm_torch.py" else []
+            procs.append((cmd, time.perf_counter(), subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples", cmd[0]),
+                 *cmd[1:], *extra], cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+        runs = []
+        try:
+            for cmd, start, p in procs:
+                out, err = p.communicate(timeout=600)
+                runs.append(dict(command=" ".join(["python", "examples/"
+                                                   + cmd[0], *cmd[1:]]),
+                                 rc=p.returncode, out=out, err=err,
+                                 seconds=time.perf_counter() - start))
+        finally:
+            for _, _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    launches = {"chunk_accum": {}, "flash_attention": {}}
+    for run in runs:
+        assert run["rc"] == 0, (run["command"], run["err"][-3000:])
+        name = run["command"].split("/")[1].split(".")[0]
+        for kernel in launches:
+            m = re.search(rf"^{kernel} launches: (\d+)$", run["out"], re.M)
+            if m:
+                launches[kernel][name] = int(m.group(1))
+    assert "cuda" in runs[0]["out"] and "cuda" in runs[1]["out"]
+    assert launches["chunk_accum"]["quickstart_torch"] > 0, launches
+    assert runs[2]["out"].count("req ") == 6, runs[2]["out"]
+    assert "finished at step 200;" in runs[3]["out"], runs[3]["out"]
+    res = dict(commands=[r["command"] for r in runs],
+               rcs=[r["rc"] for r in runs],
+               seconds={r["command"]: r["seconds"] for r in runs},
+               launches=launches, wall_s=time.perf_counter() - t0,
+               tails={r["command"]: r["out"].splitlines()[-3:]
+                      for r in runs})
+    emit("examples", **res)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3050,6 +3119,7 @@ def main() -> int:
     phase_model_parallel_cards(args.seed)
     dry = phase_dryrun_cards()
     measured = phase_roofline_measured(args.seed)
+    examples = phase_examples()
     # the later slices' paths, each counted from 0 just before it
     paths = {name: {"train_long": n} for name, n in
              long["kernel_launches"].items()}
@@ -3074,6 +3144,9 @@ def main() -> int:
         paths[name]["dryrun_cards"] = sum(c["launches"][name]
                                           for c in dry["cells"])
         paths[name]["roofline_measured"] = measured["launches"][name]
+    for name, by_example in examples["launches"].items():
+        for example, n in by_example.items():
+            paths[name][f"examples_{example}"] = n
 
     print(smi)
     print(json.dumps({"kernels": [{

@@ -157,11 +157,16 @@ class Collectives:
                kinds: Sequence[str] = PAIR_KINDS,
                opts: Optional[CompileOptions] = None,
                timings: Optional[Dict[str, float]] = None,
+               packed_out: Optional[Dict[str, Any]] = None,
+               jobs: int = 1,
                **overrides: Any) -> Dict[str, Artifact]:
         """One topology's collective family compiled together — the §2.1
         solve and the split/pack products shared across kinds, byte-identical
         to per-kind compiles (`ScheduleCache.family` on the cache path).
-        ``timings`` receives per-kind marginal wall seconds."""
+        ``timings`` receives per-kind marginal wall seconds; ``packed_out``
+        (fresh compiles only) the pre-rounds plans for P >= depth
+        re-rounding; ``jobs > 1`` packs the independent orientations/kinds
+        in worker processes (fresh-compile path only)."""
         g = self.topology(topo)
         o = self.opts(opts, **overrides)
         root = (o.replace(kind="broadcast").resolved_root(g)
@@ -173,7 +178,8 @@ class Collectives:
                                          timings=timings)
         return plan_mod.compile_family(
             g, kinds=kinds, num_chunks=o.num_chunks, root=root,
-            fixed_k=o.fixed_k, verify=o.verify, timings=timings)
+            fixed_k=o.fixed_k, verify=o.verify, timings=timings,
+            packed_out=packed_out, jobs=jobs)
 
     def pair(self, topo: SpecLike,
              opts: Optional[CompileOptions] = None,

@@ -25,7 +25,9 @@ split over "model" where their count divides it (`split_heads` gathers a
 projection whose heads do not), and `attend` runs each rank's own heads
 as local tensors (`_attend_sharded`): the kernel sees [B, H/mp, S, D]
 tensors, never a DTensor.  Where the kv heads do not divide "model", each
-rank takes the kv heads its local q heads read under GQA.
+rank takes the kv heads its local q heads read under GQA; a decode cache
+placed split on head_dim there stays so, and the scores are all-reduced
+(`_attend_head_dim`).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
@@ -40,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.ops import flash_attention_bshd
 
 from .common import (ModelConfig, NEG_INF, activation_candidate, apply_rope,
-                     dense_init, rms_norm, softcap, unsplit_sequence)
+                     dense_init, linear, rms_norm, softcap,
+                     unshard, unsplit_sequence)
 
 BLOCKWISE_THRESHOLD = 2048      # use the blockwise path above this many rows
 BLOCK_Q = 1024
@@ -129,13 +133,20 @@ def init_attention(p: Attention, cfg: ModelConfig,
 # ---------------------------------------------------------------------- #
 
 def _direct_attend(q, k, v, q_pos, kv_pos, spec: MaskSpec,
-                   logit_cap: Optional[float]) -> torch.Tensor:
+                   logit_cap: Optional[float], sum_logits=None,
+                   head_dim: Optional[int] = None) -> torch.Tensor:
+    """One einsum each way.  q and k may hold a slice of head_dim
+    (`_attend_head_dim`): `sum_logits` then sums the partial float32
+    logits over the slices, and `head_dim` is the whole one, which
+    scales them."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
     qg = q.reshape(b, s, hkv, g, d)
     logits = torch.einsum("bshgd,bthd->bhgst", qg, k).float()
-    logits = softcap(logits / d ** 0.5, logit_cap)
+    if sum_logits is not None:
+        logits = sum_logits(logits)
+    logits = softcap(logits / (head_dim or d) ** 0.5, logit_cap)
     ok = spec.allowed(q_pos, kv_pos)                  # [B,S,T] or [S,T]
     if ok.dim() == 2:
         ok = ok[None]
@@ -144,7 +155,7 @@ def _direct_attend(q, k, v, q_pos, kv_pos, spec: MaskSpec,
     # in the reference (a visible rounding at bf16)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v)
-    return out.reshape(b, s, h, d)
+    return out.reshape(b, s, h, v.shape[-1])
 
 
 def _kv_step(m, l, acc, qg, kj, vj, ok, logit_cap):
@@ -307,6 +318,9 @@ def _attend_sharded(q, k, v, q_pos, kv_pos, spec: MaskSpec,
     "model" rank attending all heads of its rows."""
     mesh = q.device_mesh
     h, hkv = q.shape[2], k.shape[2]
+    at = _head_dim_split(k, v)
+    if at is not None:
+        return _attend_head_dim(q, k, v, q_pos, kv_pos, spec, logit_cap, at)
     qp, kvp, kv_grad = [], [], []
     model_rank = None
     names = mesh.mesh_dim_names
@@ -345,6 +359,62 @@ def _attend_sharded(q, k, v, q_pos, kv_pos, spec: MaskSpec,
         vl = _local_kv_heads(vl, h, model_rank[1], model_rank[0])
     out = attend(ql, kl, vl, q_pos, kv_pos, spec, logit_cap).contiguous()
     return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def _head_dim_split(k, v) -> Optional[int]:
+    """The index of the "model" mesh dim where k and v (DTensors [B,T,Hkv,
+    D]) both arrive split on head_dim, as a decode cache whose kv heads do
+    not divide "model" is placed (`decode_state_specs`); else None."""
+    if not isinstance(k, DTensor) or not isinstance(v, DTensor):
+        return None
+    names = k.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    at = names.index("model")
+    if k.device_mesh.size(at) == 1:
+        return None
+    return at if k.placements[at] == v.placements[at] == Shard(3) else None
+
+
+def _attend_head_dim(q, k, v, q_pos, kv_pos, spec: MaskSpec,
+                     logit_cap: Optional[float], at: int) -> torch.Tensor:
+    """`attend` over k, v split on head_dim over "model" (mesh dim `at`):
+    the small q is moved to the same split, never the cache.  Each rank
+    contracts its head_dim slice of q and k, the partial float32 logits
+    [B, Hkv, G, S, T] are all-reduced over "model", and softcap, mask and
+    softmax run on every rank alike; P.V takes the rank's slice of v, and
+    the output [B, S, H, D], small too, leaves split over the heads where
+    H divides "model", else replicated there, as the other routes leave
+    it.  Rows stay over the batch axes where they divide."""
+    mesh = q.device_mesh
+    h = q.shape[2]
+    pl, summed = [], []
+    for i in range(mesh.ndim):
+        if i == at:
+            pl.append(Shard(3))
+            summed.append(Replicate())
+        else:
+            rows = Shard(0) if q.shape[0] % mesh.size(i) == 0 \
+                else Replicate()
+            pl.append(rows)
+            summed.append(rows)
+    partial = [Partial() if i == at else p for i, p in enumerate(summed)]
+
+    def sum_logits(t: torch.Tensor) -> torch.Tensor:
+        return DTensor.from_local(t, mesh, partial, run_check=False) \
+            .redistribute(mesh, summed).to_local(grad_placements=partial)
+
+    ql, kl, vl = (_placed(x, pl).to_local() for x in (q, k, v))
+    if q_pos is None:
+        q_pos = torch.arange(q.shape[1], device=ql.device)
+    if kv_pos is None:
+        kv_pos = torch.arange(k.shape[1], device=ql.device)
+    out = _direct_attend(ql, kl, vl, q_pos, kv_pos, spec, logit_cap,
+                         sum_logits, q.shape[-1]).contiguous()
+    out = DTensor.from_local(out, mesh, pl, run_check=False)
+    n = mesh.size(at)
+    return _placed(out, [(Shard(2) if h % n == 0 else Replicate())
+                         if i == at else p for i, p in enumerate(pl)])
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -426,10 +496,10 @@ def attention_forward(
     hd = cfg.hd
     b, s, _ = x.shape
     x = unsplit_sequence(x)
-    q = split_heads(p.wq(x), cfg.num_heads, hd)
+    q = split_heads(linear(p.wq, x), cfg.num_heads, hd)
     if kv_override is None:
-        k = split_heads(p.wk(x), cfg.num_kv_heads, hd)
-        v = split_heads(p.wv(x), cfg.num_kv_heads, hd)
+        k = split_heads(linear(p.wk, x), cfg.num_kv_heads, hd)
+        v = split_heads(linear(p.wv, x), cfg.num_kv_heads, hd)
         if cfg.qk_norm:
             q = rms_norm(q, p.q_norm, cfg.norm_eps)
             k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -476,4 +546,5 @@ def attention_forward(
     out = attend(q, k.to(q.dtype), v.to(q.dtype), positions, kv_pos, spec,
                  logit_cap)
     y = out.reshape(b, s, cfg.num_heads * hd)
-    return p.wo(_split_like_input_dim(y, p.wo.weight)), new_cache
+    w_o = unshard(p.wo.weight)
+    return F.linear(_split_like_input_dim(y, w_o), w_o), new_cache

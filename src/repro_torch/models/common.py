@@ -215,6 +215,32 @@ def unsplit_sequence(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, pl)
 
 
+def unshard(w: torch.Tensor) -> torch.Tensor:
+    """FSDP's unshard: a DTensor weight split over the "data" mesh dim
+    gathered there before a product, its other placements ("model"'s
+    tensor-parallel split) kept.  Its gradient, a partial sum over "data"
+    where the rows are split, is reduce-scattered back to the shards on
+    the way back (the redistribute's backward).  Under remat the gather
+    runs again in the recomputed forward: FSDP's reshard after forward.
+    A plain tensor, or a weight not split over "data", is returned as it
+    is, and so is one whose "data" dim has one rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(w, DTensor) or \
+            "data" not in w.device_mesh.mesh_dim_names:
+        return w
+    at = w.device_mesh.mesh_dim_names.index("data")
+    if not w.placements[at].is_shard() or w.device_mesh.size(at) == 1:
+        return w
+    pl = list(w.placements)
+    pl[at] = Replicate()
+    return w.redistribute(w.device_mesh, pl)
+
+
+def linear(lin: torch.nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`lin(x)` with its weight unsharded first (`unshard`)."""
+    return F.linear(x, unshard(lin.weight), lin.bias)
+
+
 # ---------------------------------------------------------------------- #
 # primitives
 # ---------------------------------------------------------------------- #

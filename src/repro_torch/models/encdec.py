@@ -25,8 +25,8 @@ from torch import nn
 
 from .attention import (CAUSAL, FULL, Attention, attention_forward,
                         init_attention, split_heads)
-from .common import (ModelConfig, constrain, dense_init, resolve_device,
-                     rms_norm)
+from .common import (ModelConfig, constrain, dense_init, linear,
+                     resolve_device, rms_norm)
 from .mlp import MLP, init_mlp, mlp_forward
 from .transformer import (Caches, _Applied, _norm, embed_tokens, lm_logits,
                           next_token_loss, remat_apply)
@@ -144,8 +144,10 @@ def _cross_kv(lp: DecoderLayerXAttn, cfg: ModelConfig, enc_out: torch.Tensor
     """The layer's cross-attention k, v [B, T_enc, Hkv, D]: views of
     contiguous projections, so their rows keep the flash kernel's
     alignment."""
-    k = split_heads(lp.cross_attn.wk(enc_out), cfg.num_kv_heads, cfg.hd)
-    v = split_heads(lp.cross_attn.wv(enc_out), cfg.num_kv_heads, cfg.hd)
+    k = split_heads(linear(lp.cross_attn.wk, enc_out), cfg.num_kv_heads,
+                    cfg.hd)
+    v = split_heads(linear(lp.cross_attn.wv, enc_out), cfg.num_kv_heads,
+                    cfg.hd)
     return k, v
 
 

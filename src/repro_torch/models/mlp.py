@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import activation_fn, dense_init, unsplit_sequence
+from .common import activation_fn, dense_init, linear, unsplit_sequence
 
 
 class MLP(nn.Module):
@@ -37,5 +37,5 @@ def mlp_forward(p: MLP, x: torch.Tensor, activation: str = "silu"
     act = activation_fn(activation)
     x = unsplit_sequence(x)
     if p.variant == "plain":
-        return p.w_out(act(p.w_in(x)))
-    return p.w_down(act(p.w_gate(x)) * p.w_up(x))
+        return linear(p.w_out, act(linear(p.w_in, x)))
+    return linear(p.w_down, act(linear(p.w_gate, x)) * linear(p.w_up, x))

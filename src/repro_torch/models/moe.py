@@ -28,7 +28,6 @@ its slice of each expert's ff dim, so its output is a partial sum over
 """
 from __future__ import annotations
 
-import functools
 import types
 from typing import Callable, Optional, Tuple
 
@@ -241,12 +240,12 @@ def _moe_forward_sharded(p: MoE, cfg: ModelConfig, x: DTensor
         sh = p.shared
         lp.shared = types.SimpleNamespace(
             variant="gated",
-            w_gate=functools.partial(F.linear, weight=local(
-                sh.w_gate.weight, Shard(0))),
-            w_up=functools.partial(F.linear, weight=local(
-                sh.w_up.weight, Shard(0))),
-            w_down=functools.partial(F.linear, weight=local(
-                sh.w_down.weight, Shard(1))))
+            w_gate=types.SimpleNamespace(
+                weight=local(sh.w_gate.weight, Shard(0)), bias=None),
+            w_up=types.SimpleNamespace(
+                weight=local(sh.w_up.weight, Shard(0)), bias=None),
+            w_down=types.SimpleNamespace(
+                weight=local(sh.w_down.weight, Shard(1)), bias=None))
         lp.shared_gate = local(p.shared_gate, Replicate(), part)
     rows = Shard(0) if grouped else Replicate()
     y, probs, onehot = _moe_dense(

@@ -322,20 +322,28 @@ def _mamba2_sharded(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     DTensors placed by `decode_state_specs`, their batch rows x's; the
     conv state is gathered over "model" (tiny) and the new one's x
     channels gathered back, so each rank writes its own shard; the SSM
-    state's heads are the rank's own."""
+    state's heads are the rank's own.
+
+    Where the heads do not divide "model" (64 heads at a model axis of 3),
+    every model rank runs the whole mixer on the same rows, the weights
+    and the states gathered whole over "model": the output is replicated
+    there, the weights' gradients come back replicated there (not summed
+    over the ranks), and each rank writes back its own chunk of the
+    states, whose P or N dim `decode_state_specs` split instead."""
     mesh = p.in_proj.weight.device_mesh
     names = mesh.mesh_dim_names
     din, h, _, _ = ssm_dims(cfg)
-    m = mesh.size(names.index("model")) if "model" in names else 1
-    r = mesh.get_local_rank("model") if m > 1 else 0
-    if h % m:
-        raise ValueError(f"{cfg.name}: {h} SSM heads do not split over a "
-                         f"model axis of {m}")
+    m_axis = mesh.size(names.index("model")) if "model" in names else 1
+    r_axis = mesh.get_local_rank("model") if m_axis > 1 else 0
+    # where the heads do not divide "model", every model rank runs the
+    # whole mixer (rank 0 of 1) on the same rows, replicated there
+    r, m = (r_axis, m_axis) if h % m_axis == 0 else (0, 1)
     over_model = Partial() if m > 1 else Replicate()
     x = unsplit_sequence(x)
     rows = [Replicate() if n == "model" or not (q.is_shard() and q.dim == 0)
             else q for n, q in zip(names, x.placements)]
-    split = [n == "model" or q.is_shard() for n, q in zip(names, rows)]
+    split = [(n == "model" and m == m_axis) or q.is_shard()
+             for n, q in zip(names, rows)]
     # the weights whole; gradients summed where ranks see other rows/heads
     whole = [Replicate()] * mesh.ndim
     partial = [Partial() if s else Replicate() for s in split]
@@ -343,9 +351,10 @@ def _mamba2_sharded(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
         _local(w, whole, partial) for w in (
             p.conv_w, p.conv_b, p.A_log, p.D, p.dt_bias, p.norm_w))
     # out_proj [d, d_inner]: this rank's heads' columns
-    w_out = _local(p.out_proj.weight, [Shard(1) if n == "model" else
+    by_heads = Shard(1) if m == m_axis else Replicate()
+    w_out = _local(p.out_proj.weight, [by_heads if n == "model" else
                                        Replicate() for n in names],
-                   [Shard(1) if n == "model" else g
+                   [by_heads if n == "model" else g
                     for n, g in zip(names, partial)])
     xl = _local(x, rows, [over_model if n == "model" else q
                           for n, q in zip(names, rows)])
@@ -367,7 +376,10 @@ def _mamba2_sharded(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
         conv_full = _local(conv, [Replicate() if n == "model" else q
                                   for n, q in zip(names, conv.placements)],
                            conv.placements)
-        ssm_local = ssm.to_local()          # heads split: H divides "model"
+        # the rank's heads (H divides "model"), else the whole state
+        ssm_local = ssm.to_local() if m == m_axis else _local(
+            ssm, [Replicate() if n == "model" else q
+                  for n, q in zip(names, ssm.placements)], ssm.placements)
     yz, new_conv, new_ssm = mamba2_rank(proj, conv_w, conv_b, a_log, d_skip,
                                         dt_bias, cfg, r, m, conv_full,
                                         ssm_local)
@@ -388,9 +400,27 @@ def _mamba2_sharded(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
         run_check=False)
     if state is None:
         return out, None
-    return out, (_conv_shard(new_conv, conv, din, r, m),
-                 DTensor.from_local(new_ssm, mesh, ssm.placements,
-                                    run_check=False))
+    if m == m_axis:
+        return out, (_conv_shard(new_conv, conv, din, r, m),
+                     DTensor.from_local(new_ssm, mesh, ssm.placements,
+                                        run_check=False))
+    return out, (_own_shard(new_conv, conv, r_axis, m_axis),
+                 _own_shard(new_ssm, ssm, r_axis, m_axis))
+
+
+def _own_shard(full: torch.Tensor, like: DTensor, r: int, m: int
+               ) -> DTensor:
+    """A whole state `full` (this rank's rows) in `like`'s placements:
+    model rank r of m keeps its chunk where "model" splits a dim of it
+    (`decode_state_specs` puts the SSM state's P or N there when the heads
+    do not divide "model")."""
+    mesh, names = like.device_mesh, like.device_mesh.mesh_dim_names
+    own = like.placements[names.index("model")] if "model" in names \
+        else Replicate()
+    if own.is_shard():
+        full = full.chunk(m, dim=own.dim)[r]
+    return DTensor.from_local(full.contiguous(), mesh, like.placements,
+                              run_check=False)
 
 
 def _gather_model(t: torch.Tensor, mesh, rows, width: int) -> torch.Tensor:
@@ -416,8 +446,7 @@ def _conv_shard(new_conv: torch.Tensor, conv: DTensor, din: int, r: int,
     channels [B,W-1,d_inner/m+2N]: the x channels of every rank gathered
     over "model", and this rank's chunk kept."""
     if m == 1:
-        return DTensor.from_local(new_conv, conv.device_mesh,
-                                  conv.placements, run_check=False)
+        return _own_shard(new_conv, conv, r, m)
     mesh, names = conv.device_mesh, conv.device_mesh.mesh_dim_names
     at = names.index("model")
     rows = [Replicate() if i == at else q
@@ -426,12 +455,8 @@ def _conv_shard(new_conv: torch.Tensor, conv: DTensor, din: int, r: int,
         new_conv[..., :din // m].contiguous(), mesh,
         [Shard(2) if i == at else q for i, q in enumerate(rows)],
         run_check=False).redistribute(mesh, rows).to_local()
-    full = torch.cat([xs, new_conv[..., din // m:]], dim=-1)
-    own = conv.placements[at]
-    if own.is_shard():
-        full = full.chunk(m, dim=own.dim)[r]
-    return DTensor.from_local(full.contiguous(), mesh, conv.placements,
-                              run_check=False)
+    return _own_shard(torch.cat([xs, new_conv[..., din // m:]], dim=-1),
+                      conv, r, m)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,

@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from .attention import (Attention, MaskSpec, _placed, attention_forward,
                         init_attention, ring_positions)
 from .common import (ModelConfig, constrain, dense_init, resolve_device,
-                     rms_norm, softcap, unsplit_sequence)
+                     rms_norm, softcap, unshard, unsplit_sequence)
 from .mlp import MLP, init_mlp, mlp_forward
 from .moe import MoE, init_moe, moe_forward
 
@@ -270,8 +270,22 @@ def _project(cfg: ModelConfig, h: torch.Tensor, final_norm: torch.Tensor,
     """fp32 logits of h under the final norm and the [V, d] output
     projection, with the final softcap."""
     h = unsplit_sequence(rms_norm(h, final_norm, cfg.norm_eps))
-    logits = constrain(h @ w_out.T, "logits")
+    logits = constrain(h @ _unshard_vocab_split(w_out).T, "logits")
     return softcap(logits.float(), cfg.final_logit_softcap)
+
+
+def _unshard_vocab_split(w_out: torch.Tensor) -> torch.Tensor:
+    """`unshard` for an output projection [V, d] whose vocab is split over
+    "model".  One whose vocab is not (whisper's 51865, mamba2's 50280 on
+    16) stays split over "data": gathered whole, every "model" rank would
+    compute every logit of its rows (16x the FLOPs and ~30 GiB a device
+    at train_4k), where DTensor's own choice keeps them split."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(w_out, DTensor) and "model" in \
+            w_out.device_mesh.mesh_dim_names and w_out.placements[
+                w_out.device_mesh.mesh_dim_names.index("model")].is_shard():
+        return unshard(w_out)
+    return w_out
 
 
 def _output_weight(params: DecoderLM) -> torch.Tensor:
@@ -343,16 +357,44 @@ def _vocab_split(logits: torch.Tensor) -> bool:
     return True
 
 
+def _logsumexp_sharded(logits: DTensor) -> DTensor:
+    """logsumexp over the last dim of DTensor logits [B,c,V] whose vocab
+    is split over "model", on local tensors: each rank's max is
+    all-reduced (max), then its sum of exponentials (sum), [B, c] each.
+    DTensor's own logsumexp gathers the whole float32 logits on every
+    rank.  The result keeps the logits' row placements."""
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    rows = [Replicate() if n == "model" else p
+            for n, p in zip(names, logits.placements)]
+
+    def over_model(t: torch.Tensor, op: str) -> DTensor:
+        return DTensor.from_local(t, mesh, [
+            Partial(op) if n == "model" else p for n, p in zip(names, rows)],
+            run_check=False).redistribute(mesh, rows)
+
+    local = logits.to_local()
+    m = over_model(local.detach().amax(dim=-1), "max").to_local()
+    sums = over_model(torch.exp(local - m[..., None]).sum(dim=-1), "sum")
+    return torch.log(sums) + DTensor.from_local(m, mesh, rows,
+                                                run_check=False)
+
+
 def _chunk_nll(cfg: ModelConfig, hc: torch.Tensor, lc: torch.Tensor,
                final_norm: torch.Tensor, w_out: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     logits = _project(cfg, hc, final_norm, w_out)             # [B,c,V] f32
     valid = lc != -100
     safe = torch.where(valid, lc, 0)
-    logz = torch.logsumexp(logits, dim=-1)
     if _vocab_split(logits):
+        # one "model" rank holds the whole vocab: the plain path's op
+        mesh = logits.device_mesh
+        logz = torch.logsumexp(logits, dim=-1) if mesh.size(
+            mesh.mesh_dim_names.index("model")) == 1 else \
+            _logsumexp_sharded(logits)
         gold = _gold_sharded(logits, safe)[..., 0]
     else:
+        logz = torch.logsumexp(logits, dim=-1)
         gold = _settled(torch.gather(logits, -1, safe[..., None]))[..., 0]
     return ((logz - gold) * valid).sum(), valid.sum()
 

@@ -84,10 +84,17 @@ RANKS_SCRIPT = textwrap.dedent("""
         from repro_torch.convert import from_jax_params
         from repro_torch.launch import sharding as sh
         from repro_torch.launch.mesh import make_mesh, mesh_axis_sizes
-        from repro_torch.models import build_model
+        from repro_torch.models import attention, build_model
         mesh = make_mesh(1, world, "cpu")
         sizes = mesh_axis_sizes(mesh)
         res = {}
+        head_dim_calls = [0]
+        route = attention._attend_head_dim
+
+        def counted(*args):
+            head_dim_calls[0] += 1
+            return route(*args)
+        attention._attend_head_dim = counted
         for key in archs:       # an arch, or "arch:tag" for another input
             cfg = reduced_config(key.split(":")[0])
             model = build_model(cfg)
@@ -97,6 +104,8 @@ RANKS_SCRIPT = textwrap.dedent("""
                                  sh.serving_param_specs(params, sizes))
             feed = {k: torch.from_numpy(v) for k, v in
                     np.load(os.path.join(out, key + "_in.npz")).items()}
+            steps = int(feed.pop("decode_steps", DECODE_STEPS))
+            head_dim_calls[0] = 0
             s = feed["tokens"].shape[1]
             prefix = cfg.num_image_tokens if cfg.family == "vlm" else 0
             state = model.init_decode_state(B, s + prefix + 8,
@@ -107,13 +116,14 @@ RANKS_SCRIPT = textwrap.dedent("""
                 state, logits = model.prefill(params, feed, state)
                 logits = whole(logits)
                 res[key + "/prefill"] = logits.numpy()
-                for i in range(DECODE_STEPS):
+                for i in range(steps):
                     tok = torch.argmax(logits[:, -1], -1)[:, None]
                     res[f"{key}/tok{i}"] = tok.numpy()
                     logits, state = model.decode_step(params, tok, state,
                                                       s + prefix + i)
                     logits = whole(logits)
                     res[f"{key}/decode{i}"] = logits.numpy()
+            res[key + "/head_dim_calls"] = np.int64(head_dim_calls[0])
         # the params' tree broadcast over the model axis: rank 0's leaves
         # reach every rank, over the healthy and the degraded program
         ctx = CollectiveContext({"data": 1, "model": world})
@@ -365,6 +375,61 @@ def test_tp_prefill_and_decode_match_jax_and_one_rank(mp, tmp_path):
                     ranks[r][f"bcast/{tag}/{j}/sent"], sent)
                 np.testing.assert_array_equal(
                     ranks[r][f"bcast/{tag}/{j}/got"], sent)
+
+
+HEAD_DIM_ARCHS = ["qwen3-8b", "gemma2-2b"]
+HEAD_DIM_STEPS = 4
+
+
+def test_tp_decode_over_a_head_dim_cache_matches_jax_and_one_rank(
+        tmp_path):
+    """At mp 4 the reduced models' 2 kv heads do not divide "model", so
+    the cache lies split on head_dim (`decode_state_specs`) and every
+    decode step contracts each rank's slice and all-reduces the logits
+    (`attention._attend_head_dim`, once per layer and step), the cache
+    never gathered.  4 greedy tokens equal the plain path's and the
+    reference's, every decode step's logits within LOGIT_ATOL of both;
+    gemma2-2b adds its softcap and sliding window to the route."""
+    refs = {}
+    for arch in HEAD_DIM_ARCHS:
+        cfg_j, cfg_t, tree, pt = jax_pair(arch)
+        feed = feed_of(cfg_t)
+        np.savez(tmp_path / f"{arch}.npz", **flat(tree))
+        np.savez(tmp_path / f"{arch}_in.npz", decode_steps=HEAD_DIM_STEPS,
+                 **feed)
+        mj = jax_build(cfg_j)
+        params = jax.tree.map(jnp.asarray, tree)
+        jstate, jlogits = mj.prefill(
+            params, {"tokens": jnp.asarray(feed["tokens"], jnp.int32)},
+            mj.init_decode_state(B, S + 8))
+        model = build_model(cfg_t)
+        state = model.init_decode_state(B, S + 8, device="cpu")
+        steps = []
+        with torch.no_grad():
+            state, logits = model.prefill(
+                pt, {"tokens": torch.from_numpy(feed["tokens"])}, state)
+            for i in range(HEAD_DIM_STEPS):
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                jtok = np.asarray(jnp.argmax(jlogits[:, -1], -1))[:, None]
+                np.testing.assert_array_equal(tok.numpy(), jtok)
+                logits, state = model.decode_step(pt, tok, state, S + i)
+                jlogits, jstate = mj.decode_step(
+                    params, jnp.asarray(jtok, jnp.int32), jstate,
+                    jnp.asarray(S + i, jnp.int32))
+                steps.append((tok.numpy(), logits.numpy(),
+                              np.asarray(jlogits)))
+        refs[arch] = steps
+    got = run_ranks(tmp_path, "serve", 4, 1, HEAD_DIM_ARCHS)[0]
+    for arch, steps in refs.items():
+        assert got[arch + "/head_dim_calls"] == \
+            reduced_config(arch).num_layers * HEAD_DIM_STEPS, arch
+        for i, (tok, logits, jlogits) in enumerate(steps):
+            np.testing.assert_array_equal(got[f"{arch}/tok{i}"], tok,
+                                          err_msg=arch)
+            for want in (logits, jlogits):
+                np.testing.assert_allclose(got[f"{arch}/decode{i}"], want,
+                                           atol=LOGIT_ATOL, rtol=0,
+                                           err_msg=f"{arch} step {i}")
 
 
 # ---------------------------------------------------------------------- #

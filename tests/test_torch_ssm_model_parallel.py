@@ -1,8 +1,8 @@
 """The ssm and hybrid families over the model axis on the CPU: reduced
-mamba2-780m and zamba2-1.2b served tensor-parallel at mp 2 and 4 (prefill
-and 3 greedy decode steps) and trained FSDP+TP at (data, model) = (2, 2)
-and (1, 4), against the JAX reference on one device with the same weights
-(from_jax_params), through the gloo harness of
+mamba2-780m and zamba2-1.2b served tensor-parallel at mp 2, 4 and 3
+(prefill and 3 greedy decode steps) and trained FSDP+TP at (data, model)
+= (2, 2), (1, 4) and (1, 3), against the JAX reference on one device
+with the same weights (from_jax_params), through the gloo harness of
 tests/test_torch_model_parallel.py.  Prompts of 32 tokens (a multiple of
 the reduced ssm_chunk 16: the chunked scan, `ssd_chunked`) and of 12 (the
 sequential recurrence, `ssd_reference`); training's 32-token rows take
@@ -95,8 +95,10 @@ def jax_serve(arch, tree, tokens):
     return out, toks
 
 
-@pytest.mark.parametrize("mp", [2, 4])
+@pytest.mark.parametrize("mp", [2, 4, 3])
 def test_tp_prefill_and_decode_match_jax(mp, tmp_path):
+    """At mp 3 neither arch's 8 SSM heads divide "model": every rank runs
+    the whole mixer (`_mamba2_sharded`'s replicated route)."""
     refs = {}
     for arch in ARCHS:
         tree = ssm_tree(arch)
@@ -155,13 +157,15 @@ def train_refs(arch, tree):
     return losses, ported
 
 
-@pytest.mark.parametrize("dp,mp", [(2, 2), (1, 4)])
+@pytest.mark.parametrize("dp,mp", [(2, 2), (1, 4), (1, 3)])
 def test_fsdp_tp_train_matches_the_reference(dp, mp, tmp_path):
     """The gathered in_proj's gradient differs per rank (its heads' rows
     and its share of B and C): it must come back a partial sum, or the
     other ranks' B and C terms are lost and the params drift.  At (2, 2)
     each rank's 2 x 32 rows gather in_proj's output, at (1, 4) its 4 x 32
-    rows gather the weight (`_mamba2_sharded`)."""
+    rows gather the weight (`_mamba2_sharded`).  At (1, 3) the 8 heads do
+    not divide "model" and every rank runs the whole mixer: its weights'
+    gradients must come back replicated, not summed over the 3 ranks."""
     refs = {}
     for arch in ARCHS:
         tree = ssm_tree(arch)
