@@ -269,7 +269,8 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     AdamW, remat): the counted per-device FLOPs and
                     bytes, the `RooflineTerms` bound against `H100_SXM`,
                     the wall seconds (median of timed calls) and the
-                    device-busy seconds (torch.profiler), and the MFU,
+                    device-busy seconds (bench/trace.py's reduction of
+                    a torch.profiler trace), and the MFU,
                     model FLOPs / (seconds x peak bf16 FLOP/s).
 37. examples        examples/{quickstart,schedule_explorer,serve_lm,
                     train_lm}_torch.py at their documented flags on the
@@ -2913,6 +2914,24 @@ def _measured_row(name: str, shape, counted: dict, model_flops: float,
                 top_kernels=prof["top_kernels"])
 
 
+def _traced_call(fn) -> dict:
+    """One call of `fn` between synchronizes under the benchmark's device
+    trace (bench/trace.py): its wall seconds, device busy seconds (the
+    union of the card's busy intervals), device operations, and the top
+    kernels as [name, ms]."""
+    from bench.trace import DeviceTrace, Spans
+    torch.cuda.synchronize()
+    with DeviceTrace(Spans()) as trace:
+        torch.cuda.synchronize()
+        t0, t0_ns = time.perf_counter(), time.perf_counter_ns()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    s = trace.summary(wall, t0_ns)
+    return {"wall_s": wall, "busy_s": s.busy_s, "launches": s.launches,
+            "top_kernels": [[k[:80], v * 1e3] for k, v in s.top_ops(8)]}
+
+
 def _timed_calls(fn, n: int) -> list:
     fn()                                            # warm-up
     times = []
@@ -2933,7 +2952,6 @@ def phase_roofline_measured(seed: int) -> dict:
     traced (device busy); the bound is `analysis.roofline`'s against
     `H100_SXM`."""
     from repro_torch.analysis.hlo_count import Counter
-    from repro_torch.analysis.profile_tools import device_profile
     from repro_torch.analysis.roofline import model_flops_for
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
@@ -2960,7 +2978,7 @@ def phase_roofline_measured(seed: int) -> dict:
     def prefill():
         return model.prefill(params, {"tokens": toks}, state)[1]
     times = _timed_calls(prefill, ROOFLINE_TIMED)
-    prof = device_profile(prefill)
+    prof = _traced_call(prefill)
     flash = FLASH_KERNEL.launches
     with Counter() as c:
         logits = prefill()
@@ -2989,7 +3007,7 @@ def phase_roofline_measured(seed: int) -> dict:
     def train():
         losses.append(float(step(params, opt, batch)[2]["loss"]))
     times = _timed_calls(train, 2)
-    prof = device_profile(train)
+    prof = _traced_call(train)
     with Counter() as c:
         train()
     assert all(math.isfinite(l) for l in losses), losses

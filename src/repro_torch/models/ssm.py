@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.kernels.ops import ssd_chunk_intra_bshp
 
 from .common import ModelConfig, const_init, dense_init, unsplit_sequence
@@ -110,7 +111,19 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     CPU and under autograd; the reference runs them in the input dtype, so
     in bf16 the two differ by bf16 roundings, and in float32 they agree.
     Steps 3 and 4 follow the reference: a float32 carry, emitted and read
-    out in the input dtype."""
+    out in the input dtype.
+
+    The span `ssm.ssd` covers the call and, while the recorder is on, its
+    backward pass (`obs.backward_span`)."""
+    with obs.span("ssm.ssd"):
+        return obs.backward_span("ssm.ssd", _ssd_chunked, x, dt, a, b, c,
+                                 chunk=chunk, init_state=init_state)
+
+
+def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, chunk: int,
+                 init_state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     bs, s, h, p = x.shape
     n = b.shape[-1]
     cdt = x.dtype                                             # compute dtype

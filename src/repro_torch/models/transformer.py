@@ -14,6 +14,7 @@ the recomputation, which runs after the outer swap has ended.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -21,6 +22,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch import obs
 
 from .attention import (Attention, MaskSpec, _placed, attention_forward,
                         init_attention, ring_positions)
@@ -166,14 +169,21 @@ def remat_apply(module: nn.Module, fn, *args):
     be `_Applied`.  Its weights are checkpoint inputs, swapped in through
     `torch.func.functional_call`, so the recomputation sees the ones this
     forward saw, also after an outer swap (the trainer's compute copy) has
-    ended."""
+    ended.  The recomputation runs in the span `train.recompute`."""
     names, weights = zip(*module.named_parameters())
     n = len(args)
 
     def run(*xs):
         return torch.func.functional_call(
             module, dict(zip(names, xs[n:])), (fn, *xs[:n]))
-    return checkpoint(run, *args, *weights, use_reentrant=False)
+    return checkpoint(run, *args, *weights, use_reentrant=False,
+                      context_fn=_recompute_contexts)
+
+
+def _recompute_contexts():
+    """checkpoint's (forward, recomputation) contexts: the recomputation in
+    the span `train.recompute` (a no-op while the recorder is off)."""
+    return contextlib.nullcontext(), obs.span("train.recompute")
 
 
 def decoder_stack(params: DecoderLM, cfg: ModelConfig, h: torch.Tensor,

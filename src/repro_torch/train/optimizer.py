@@ -22,6 +22,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import obs
+
 Grads = Dict[str, torch.Tensor]
 
 
@@ -78,7 +80,15 @@ def adamw_update(cfg: AdamWConfig, grads: Grads, state: AdamWState,
                                              Dict[str, object]]:
     """One AdamW step with global-norm clipping and decoupled weight decay
     (none on 1-D weights: norms).  Updates params (float32), the moments
-    and the grads in place.  Returns (params, new_state, metrics)."""
+    and the grads in place.  Returns (params, new_state, metrics).  Runs
+    in the span `train.adamw`."""
+    with obs.span("train.adamw"):
+        return _adamw_update(cfg, grads, state, params)
+
+
+def _adamw_update(cfg: AdamWConfig, grads: Grads, state: AdamWState,
+                  params: nn.Module) -> Tuple[nn.Module, AdamWState,
+                                              Dict[str, object]]:
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1

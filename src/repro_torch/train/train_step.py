@@ -12,6 +12,10 @@ The `grad_reduce` hook is where data parallelism plugs in: the paper's
 tree-pipeline allreduce (`repro_torch.comms.BucketedAllReduce`) or
 `torch.distributed.all_reduce`.
 
+Each microbatch's forward and backward passes run in the spans
+`train.forward` and `train.backward` (repro_torch.obs), AdamW in
+`train.adamw`.
+
 Under FSDP+TP the parameters, their AdamW state and the batch are DTensors
 (repro_torch.launch.sharding): the batch rows over the data axis, and each
 gradient, which comes back as a partial sum over the data axis, is
@@ -28,6 +32,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import obs
 from repro_torch.models.model_zoo import Model
 
 from .optimizer import AdamWConfig, AdamWState, adamw_update, init_adamw
@@ -91,14 +96,16 @@ def loss_and_grad(model: Model, params: nn.Module,
     loss = torch.zeros((), dtype=torch.float32, device=device)
     tok = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(n):
-        mb = {k: _rows(v, i, n).to(
-                  device, cfg.compute_dtype if v.is_floating_point()
-                  else v.dtype) for k, v in batch.items()}
-        cast = cast_params(params, cfg.compute_dtype)
-        total, token_loss = torch.func.functional_call(
-            params, cast, (model.loss, mb))
-        del cast
-        with implicit_replication():    # remat's recomputation runs here
+        with obs.span("train.forward"):
+            mb = {k: _rows(v, i, n).to(
+                      device, cfg.compute_dtype if v.is_floating_point()
+                      else v.dtype) for k, v in batch.items()}
+            cast = cast_params(params, cfg.compute_dtype)
+            total, token_loss = torch.func.functional_call(
+                params, cast, (model.loss, mb))
+            del cast
+        # remat's recomputation runs here
+        with obs.span("train.backward"), implicit_replication():
             total.backward()
         loss = loss + _whole(total.detach().float())
         tok = tok + _whole(token_loss.detach().float())
