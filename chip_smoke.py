@@ -327,6 +327,23 @@ MODEL_ATOL = 1e-4             # fp32 logits, kernel vs plain attention
 # states are f32 in both
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)
 SSD_TOL_BF16_Y = dict(atol=1e-3, rtol=2.0 ** -7)
+# SSD backward, kernel vs plain autograd on the same inputs: each gradient's
+# largest error over its largest magnitude.  fp32 sums in another order
+# (cuBLAS against the kernel's FMA chains, over up to a chunk's rows and
+# the heads); bf16 carries its float32 operands in two bf16 parts (~2**-16)
+# and rounds dx, db, dc to bf16 once (2**-9 of each element).  da is a sum
+# over every row of reverse cumsums of dcum, whose parts (the rows and
+# columns of dM o M) cancel, and the two sides' dM o M differ in the order
+# of their float32 sums, so da keeps ~1e-4 of its size (up to 2.7e-4 read
+# in float32 on an H100)
+SSD_BWD_TOL = {
+    torch.float32: dict(dx=1e-5, ddt=1e-5, da=1e-3, db=1e-5, dc=1e-5),
+    torch.bfloat16: dict(dx=2.0 ** -7, ddt=1e-4, da=1e-3, db=2.0 ** -7,
+                         dc=2.0 ** -7)}
+# mamba2-780m's train step (the benchmark's cell): 2 x 4096 tokens, chunk
+# 512; and zamba2-1.2b's Mamba2 layers at the same length
+SSD_TRAIN = dict(b=2, s=4096, h=48, p=64, n=128, q=512)
+SSD_TRAIN_ZAMBA2 = dict(b=2, s=4096, h=64, p=64, n=64, q=256)
 # mamba2-780m prefill: 2 prompts of 2048 tokens, 48 heads of 64, state 128
 SSD_MAIN = dict(b=2, s=2048, h=48, p=64, n=128, q=512)
 # zamba2-1.2b prefill: 2 prompts of 1024 tokens, 64 heads of 64, state 64
@@ -424,21 +441,31 @@ def _ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-def _hgmma_count(library: str) -> int:
+def _hgmma_count(library: str) -> dict:
     """HGMMA (wgmma) instructions in a built library's SASS, from the
-    toolkit's cuobjdump beside nvcc."""
+    toolkit's cuobjdump beside nvcc, by function (mangled name)."""
     from repro_torch.kernels import build
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts.setdefault(fn, 0)
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
-# the tensor-core kernels: library -> mangled name of a bf16 instance, and
-# how its template arguments read
+# the tensor-core kernels: library -> the mangled names of its bf16
+# instances, and how their template arguments read
 WGMMA_INSTANCES = {
-    "flash_attention": (r"flash_fwd_bf16ILi(\d+)E", "D={}"),
-    "ssd_chunk": (r"ssd_chunk_bf16ILi(\d+)ELi(\d+)E", "P={},N={}")}
+    "flash_attention": [(r"flash_fwd_bf16ILi(\d+)E", "D={}")],
+    "ssd_chunk": [(r"ssd_chunk_bf16ILi(\d+)ELi(\d+)E", "P={},N={}"),
+                  (r"ssd_bwd_dx_bf16ILi(\d+)ELi(\d+)E", "bwd_dx P={},N={}"),
+                  (r"ssd_bwd_ds_bf16ILi(\d+)ELi(\d+)E", "bwd_ds P={},N={}")]}
 
 
 def phase_build() -> None:
@@ -457,18 +484,23 @@ def phase_build() -> None:
                                                   log)})
         extra = {}
         if name in WGMMA_INSTANCES:
-            # the bf16 path runs on the tensor cores: its SASS holds HGMMA
-            hgmma = _hgmma_count(str(path))
-            assert hgmma > 0, f"{name} has no HGMMA instruction"
-            pattern, label = WGMMA_INSTANCES[name]
-            instances = {
-                label.format(*m.groups()): info
-                for kernel, info in _ptxas_by_kernel(log).items()
-                for m in [re.search(pattern, kernel)] if m}
+            # the bf16 paths run on the tensor cores: every bf16 instance's
+            # SASS holds HGMMA
+            by_fn = _hgmma_count(str(path))
+            ptxas = _ptxas_by_kernel(log)
+            instances = {}
+            for pattern, label in WGMMA_INSTANCES[name]:
+                for kernel in set(ptxas) | set(by_fn):
+                    m = re.search(pattern, kernel)
+                    if m:
+                        instances[label.format(*m.groups())] = dict(
+                            ptxas.get(kernel, {}), hgmma=by_fn.get(kernel, 0))
+            assert instances and all(v["hgmma"] > 0 for v in
+                                     instances.values()), (name, instances)
             # ptxas names the wgmma it had to serialize (a lost overlap)
             notes = [l.strip() for l in log.splitlines()
                      if "wgmma" in l.lower()]
-            extra = dict(hgmma=hgmma, bf16_instances=instances,
+            extra = dict(hgmma=sum(by_fn.values()), bf16_instances=instances,
                          ptxas_wgmma_notes=notes)
         emit("build", kernel=name,
              source=f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1206,7 +1238,7 @@ def phase_ssd_vs_plain(seed: int) -> dict:
     for dtype in dtypes:
         for q, p, n in shapes:
             x, dt, a, b, c = _ssd_inputs(gen, 2, 2 * q, 3, p, n, dtype)
-            ref = ssd_chunk_intra_bshp(x, dt, a, b, c, q, plain=True)
+            ref = _ssd_plain(x, dt, a, b, c, q)
             # the model's layout: transposed views, shared b and c
             got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
             torch.cuda.synchronize()
@@ -1227,7 +1259,7 @@ def phase_ssd_vs_plain(seed: int) -> dict:
         x, dt, a, b, c = _ssd_inputs(gen, 2, 2 * q, 3, p, n, torch.bfloat16)
         bc = torch.cat([b[..., :1], b, c], dim=-1)
         b, c = bc[..., 1:1 + n], bc[..., 1 + n:]
-        ref = ssd_chunk_intra_bshp(x, dt, a, b, c, q, plain=True)
+        ref = _ssd_plain(x, dt, a, b, c, q)
         got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
         torch.cuda.synchronize()
         check("unaligned_bc", got, ref, torch.bfloat16, q, p, n, None)
@@ -1251,6 +1283,11 @@ def phase_ssd_vs_plain(seed: int) -> dict:
                library="none: no single PyTorch call computes this function",
                zamba2=_ssd_time(gen, SSD_ZAMBA2),
                local_heads=_ssd_local_heads(gen))
+    # the backward: the five gradients against plain autograd at the
+    # forward's edge shapes, then at the train shapes with times
+    res.update(backward=_ssd_bwd_cases(gen, shapes, pns),
+               backward_train=_ssd_bwd_time(gen, SSD_TRAIN),
+               backward_zamba2=_ssd_bwd_time(gen, SSD_TRAIN_ZAMBA2))
     emit("ssd_vs_plain", **res)
     torch.cuda.empty_cache()
     return res
@@ -1291,7 +1328,7 @@ def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
                           torch.bfloat16) for _ in range(sets)]
     err, ok, _ = _ssd_err(
         ssd_chunk_intra_bshp(*inputs[0], m["q"]),
-        ssd_chunk_intra_bshp(*inputs[0], m["q"], plain=True), torch.bfloat16)
+        _ssd_plain(*inputs[0], m["q"]), torch.bfloat16)
     assert ok, (m, err)
 
     def kernel():
@@ -1300,7 +1337,7 @@ def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
 
     def plain():
         for args in inputs:
-            ssd_chunk_intra_bshp(*args, m["q"], plain=True)
+            _ssd_plain(*args, m["q"])
 
     plain_ms = cuda_ms(plain, iters=3, warmup=1) / sets
     kernel_ms = graph_ms(kernel, sets)
@@ -1339,6 +1376,176 @@ def _ssd_bound(m: dict) -> tuple:
                            "bytes": nbytes / PEAK_BYTES * 1e3}
 
 
+GRAD_NAMES = ("dx", "ddt", "da", "db", "dc")
+
+
+def _ssd_plain(x, dt, a, b, c, q) -> tuple:
+    """The SSD block's plain version (`ref.ssd_chunk_intra_heads_reference`)
+    in the model's layout, under autograd through its own ops: the
+    kernels' yardstick."""
+    from repro_torch.kernels.ops import heads_views
+    from repro_torch.kernels.ref import ssd_chunk_intra_heads_reference
+    y, st = ssd_chunk_intra_heads_reference(*heads_views(x, dt, a, b, c), q)
+    return y.transpose(1, 2), st.transpose(1, 2)
+
+
+def _ssd_grads(x, dt, a, b, c, q, dy, dst, plain: bool) -> list:
+    """The gradients of x, dt, a, b, c given dy and dstates: through the
+    kernels' autograd Function, or (plain) autograd of the plain version.
+    The leaves keep the inputs' strides (a head slice stays one)."""
+    from repro_torch.kernels import ssd_chunk_intra_bshp
+    ins = [t.detach().requires_grad_() for t in (x, dt, a, b, c)]
+    y, st = (_ssd_plain if plain else ssd_chunk_intra_bshp)(*ins, q)
+    torch.autograd.backward((y, st), (dy, dst))
+    return [t.grad for t in ins]
+
+
+def _grad_errs(got, ref) -> dict:
+    """Each gradient's largest error over its largest magnitude."""
+    return {name: ((g.float() - r.float()).abs().max()
+                   / r.float().abs().max().clamp_min(1e-30)).item()
+            for name, g, r in zip(GRAD_NAMES, got, ref)}
+
+
+def _ssd_bwd_inputs(gen, b, s, h, p, n, q, dtype):
+    x, dt, a, bb, cc = _ssd_inputs(gen, b, s, h, p, n, dtype)
+    dy = torch.randn(b, s, h, p, generator=gen, device=DEV).to(dtype)
+    dst = torch.randn(b, s // q, h, p, n, generator=gen, device=DEV)
+    return (x, dt, a, bb, cc), dy, dst
+
+
+def _ssd_bwd_cases(gen, shapes, pns) -> dict:
+    """The backward kernel against plain autograd in both dtypes at the
+    forward sweep's chunks (whole, ragged, one row) and every (P, N), on
+    the model's layout (b, c shared, G = 1); G = H through the heads
+    layout against the plain backward; a chunk whose decay overflows
+    float32's exp; and each case run twice, bit-equal."""
+    from repro_torch.kernels import ssd_chunk_intra_bwd_heads
+    from repro_torch.kernels.ref import ssd_chunk_intra_bwd_reference
+    worst, failures, unequal, cases = {}, [], [], 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = SSD_BWD_TOL[dtype]
+        worst[str(dtype)[6:]] = dict.fromkeys(GRAD_NAMES, 0.0)
+        for q, p, n in shapes:
+            ins, dy, dst = _ssd_bwd_inputs(gen, 2, 2 * q, 3, p, n, q, dtype)
+            if (q, p, n) == (64, 64, 64):     # cum over -300: exp overflows
+                ins = (ins[0], ins[1] + 1.0, ins[2] * 20.0) + ins[3:]
+            got = _ssd_grads(*ins, q, dy, dst, plain=False)
+            again = _ssd_grads(*ins, q, dy, dst, plain=False)
+            ref = _ssd_grads(*ins, q, dy, dst, plain=True)
+            torch.cuda.synchronize()
+            errs = _grad_errs(got, ref)
+            cases += 1
+            for k, v in errs.items():
+                worst[str(dtype)[6:]][k] = max(worst[str(dtype)[6:]][k], v)
+            if not all(torch.isfinite(g).all() for g in got) or \
+                    any(errs[k] > tol[k] for k in GRAD_NAMES):
+                failures.append((str(dtype), q, p, n, errs))
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                unequal.append((str(dtype), q, p, n))
+        # G = H: each head its own b, c, through the heads layout
+        for q, p, n in ((64, 32, 64), (129, 64, 128), (512, 64, 128)):
+            (x, dt, a, bb, cc), dy, dst = _ssd_bwd_inputs(
+                gen, 2, 2 * q, 3, p, n, q, dtype)
+            bh = torch.randn(2, 3, 2 * q, n, generator=gen,
+                             device=DEV).to(dtype)
+            ch = torch.randn(2, 3, 2 * q, n, generator=gen,
+                             device=DEV).to(dtype)
+            views = (x.transpose(1, 2), dt.transpose(1, 2), a.expand(2, 3),
+                     bh, ch, dy.transpose(1, 2), dst.transpose(1, 2))
+            got = ssd_chunk_intra_bwd_heads(*views, q)
+            ref = ssd_chunk_intra_bwd_reference(*views, q)
+            torch.cuda.synchronize()
+            errs = _grad_errs(got, ref)
+            cases += 1
+            if not all(torch.isfinite(g).all() for g in got) or \
+                    any(errs[k] > tol[k] for k in GRAD_NAMES):
+                failures.append((str(dtype), "G=H", q, p, n, errs))
+    assert not failures, f"SSD backward disagrees with plain autograd: " \
+        f"{failures}"
+    assert not unequal, f"SSD backward not bit-equal run to run: {unequal}"
+    return dict(cases=cases, worst=worst,
+                tol={str(k)[6:]: v for k, v in SSD_BWD_TOL.items()},
+                bit_equal_run_to_run=True)
+
+
+def _ssd_bwd_bound(m: dict) -> tuple:
+    """(FLOPs, bytes, {"operations": ms, "bytes": ms}) of one bf16 SSD
+    backward at shape m: over the causal pairs i >= j, C.B^T, dC and dB
+    once per batch row (one group) and per head dM and M^T dy, and the
+    states' two terms per head; x, dy, dx (bf16), dt, ddt (f32), b, c, db,
+    dc (bf16) and dstates (f32) each moved once."""
+    bh, chunks, q = m["b"] * m["h"], m["s"] // m["q"], m["q"]
+    pairs = q * (q + 1) // 2
+    flops = 2 * chunks * (3 * m["b"] * pairs * m["n"]
+                          + bh * (2 * pairs * m["p"]
+                                  + 2 * q * m["p"] * m["n"]))
+    nbytes = (3 * 2 * bh * m["s"] * m["p"] + 2 * 4 * bh * m["s"]
+              + 2 * 4 * m["h"] + 4 * 2 * m["b"] * m["s"] * m["n"]
+              + 4 * bh * chunks * m["p"] * m["n"])
+    return flops, nbytes, {"operations": flops / PEAK_BF16_FLOPS * 1e3,
+                           "bytes": nbytes / PEAK_BYTES * 1e3}
+
+
+def _ssd_bwd_time(gen, m: dict, sets: int = 2) -> dict:
+    """The bf16 SSD backward at a train shape, as the model's autograd
+    Function calls it: its gradients against plain autograd, bit-equal
+    run to run; device time per call from a CUDA graph over `sets` input
+    sets (eager in kernel_eager_ms) beside the bound, the plain autograd
+    backward's time and the forward kernel's."""
+    from repro_torch.kernels import SSD_BWD_KERNEL, ssd_chunk_intra_bshp
+    from repro_torch.kernels.ops import ssd_chunk_intra_bshp_bwd
+    sets_in = [_ssd_bwd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
+                               m["q"], torch.bfloat16) for _ in range(sets)]
+    ins, dy, dst = sets_in[0]
+    got = _ssd_grads(*ins, m["q"], dy, dst, plain=False)
+    again = _ssd_grads(*ins, m["q"], dy, dst, plain=False)
+    ref = _ssd_grads(*ins, m["q"], dy, dst, plain=True)
+    errs = _grad_errs(got, ref)
+    tol = SSD_BWD_TOL[torch.bfloat16]
+    assert all(errs[k] <= tol[k] for k in GRAD_NAMES), (m, errs)
+    same = all(torch.equal(g, h) for g, h in zip(got, again))
+    assert same, m
+    del got, again, ref
+
+    # the backward alone, as the autograd Function runs it
+    def kernel():
+        for ins, dy, dst in sets_in:
+            ssd_chunk_intra_bshp_bwd(*ins, dy, dst, m["q"])
+
+    before = SSD_BWD_KERNEL.launches
+    kernel_ms = graph_ms(kernel, sets)
+    eager_ms = cuda_ms(kernel, iters=5) / sets
+    kernel_ms = (kernel_ms + graph_ms(kernel, sets)) / 2
+    launches = SSD_BWD_KERNEL.launches - before
+
+    def forward():
+        for ins, _, _ in sets_in:
+            ssd_chunk_intra_bshp(*ins, m["q"])
+    fwd_ms = graph_ms(forward, sets)
+    # plain autograd: the graph of the plain version, its backward timed
+    ins, dy, dst = sets_in[0]
+    leaves = [t.detach().requires_grad_() for t in ins]
+    outs = _ssd_plain(*leaves, m["q"])
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        outs, leaves, (dy, dst), retain_graph=True), iters=3, warmup=1)
+    del outs, leaves
+    flops, nbytes, bound = _ssd_bwd_bound(m)
+    bound_by = max(bound, key=bound.get)
+    torch.cuda.empty_cache()
+    return dict(shape=m, dtype="bfloat16", grad_errs=errs,
+                bit_equal_run_to_run=same, kernel_ms=kernel_ms,
+                kernel_eager_ms=eager_ms, plain_autograd_ms=plain_ms,
+                forward_kernel_ms=fwd_ms, launches_timed=launches,
+                timing=f"kernel_ms: device time per backward call (the "
+                       f"autograd Function's), CUDA graph of {sets} calls on "
+                       f"{sets} input sets; eager and plain autograd: eager "
+                       f"calls",
+                bound_ms=bound[bound_by], bound_by=bound_by, flops=flops,
+                bytes=nbytes, tflops=flops / kernel_ms / 1e9,
+                bound_fraction=bound[bound_by] / kernel_ms)
+
+
 # mamba2-780m's 48 heads over a model axis of 2, 4 and 16 (the placed
 # mixer runs the SSD block on each rank's own heads)
 SSD_LOCAL_HEADS = (24, 12, 3)
@@ -1351,7 +1558,9 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
     one [B,S,hl*P+2N] conv output).  Each against the plain version to
     phase 13's tolerances, whether `dense_if_unaligned` copied x, b or c,
     and device time per call from a CUDA graph over `sets` input sets,
-    beside the bound."""
+    beside the bound; then the autograd Function's backward on the same
+    views (the leaves keep their strides) against plain autograd within
+    SSD_BWD_TOL, bit-equal run to run."""
     from repro_torch.kernels import ssd_chunk_intra_bshp
     from repro_torch.kernels.ssd_scan import dense_if_unaligned
     m = SSD_MAIN
@@ -1374,9 +1583,24 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
             inputs = [views(*f, layout) for f in full]
             err, ok, _ = _ssd_err(
                 ssd_chunk_intra_bshp(*inputs[0], m["q"]),
-                ssd_chunk_intra_bshp(*inputs[0], m["q"], plain=True),
+                _ssd_plain(*inputs[0], m["q"]),
                 torch.bfloat16)
             assert ok, (hl, layout, err)
+            dy = torch.randn(inputs[0][0].shape, generator=gen,
+                             device=DEV).to(torch.bfloat16)
+            dst = torch.randn(m["b"], m["s"] // m["q"], hl, m["p"], m["n"],
+                              generator=gen, device=DEV)
+            got = _ssd_grads(*inputs[0], m["q"], dy, dst, plain=False)
+            again = _ssd_grads(*inputs[0], m["q"], dy, dst, plain=False)
+            ref = _ssd_grads(*inputs[0], m["q"], dy, dst, plain=True)
+            bwd_errs = _grad_errs(got, ref)
+            tol = SSD_BWD_TOL[torch.bfloat16]
+            assert all(torch.isfinite(g).all() for g in got) and all(
+                bwd_errs[k] <= tol[k] for k in GRAD_NAMES), \
+                (hl, layout, bwd_errs)
+            bwd_same = all(torch.equal(g, h) for g, h in zip(got, again))
+            assert bwd_same, (hl, layout)
+            del got, again, ref, dy, dst
             x, _, _, b, c = inputs[0]
             kv = (x.transpose(1, 2), b[:, None], c[:, None])
             copied = [n for n, t, d in zip("xbc", kv, dense_if_unaligned(*kv))
@@ -1393,7 +1617,9 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
                             shape=local, max_abs_err=err, copied=copied,
                             kernel_ms=kernel_ms, bound_ms=bound[bound_by],
                             bound_by=bound_by,
-                            bound_fraction=bound[bound_by] / kernel_ms))
+                            bound_fraction=bound[bound_by] / kernel_ms,
+                            bwd_grad_errs=bwd_errs,
+                            bwd_bit_equal_run_to_run=bwd_same))
             del inputs
     return out
 
@@ -2146,8 +2372,9 @@ AUDIO_PROMPTS = (128, 64, 200, 16)     # decoder tokens; each 1500 frames
 # layers are ~229 GB: it trains at its published width with 4 layers
 MOE_TRAIN_LAYERS = 4
 # (arch, global batch, --seq in text tokens, layers kept or None);
-# sequences are multiples of the SSM chunk (512, 256), so the chunked scan
-TRAIN_FAMILIES = [("mamba2-780m", 2, 1024, None),
+# sequences are multiples of the SSM chunk (512, 256), so the chunked scan;
+# mamba2-780m at the benchmark cell's 2 x 4096
+TRAIN_FAMILIES = [("mamba2-780m", 2, 4096, None),
                   ("zamba2-1.2b", 2, 1024, None),
                   ("paligemma-3b", 2, 512, None),
                   ("whisper-medium", 2, 448, None),
@@ -2355,14 +2582,25 @@ class _SkipCheckpointWrites:
 
 
 def phase_train_families(seed: int) -> dict:
+    """`launch.train.run` of each family at full width, 3 steps, with
+    every kernel's launches a step: under autograd attention takes its
+    plain path, the SSD block its kernels (the forward twice a Mamba2
+    layer with remat, the backward once), and no plain SSD block runs."""
     import repro_torch.configs as configs
-    from repro_torch.kernels import CHUNK_ACCUM_KERNEL, FLASH_KERNEL, SSD_KERNEL
+    from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
+                                     SSD_BWD_KERNEL, SSD_KERNEL, ssd_scan)
     from repro_torch.launch import train as launch_train
-    kernels = (FLASH_KERNEL, SSD_KERNEL, CHUNK_ACCUM_KERNEL)
-    for k in kernels:
-        k.launches = 0
+    kernels = {"flash_attention": FLASH_KERNEL, "ssd_chunk": SSD_KERNEL,
+               "ssd_chunk_bwd": SSD_BWD_KERNEL,
+               "chunk_accum": CHUNK_ACCUM_KERNEL}
     get_config = configs.get_config
-    out = {}
+    plain_ssd = ssd_scan.ssd_chunk_intra_heads_reference
+    plain_calls = []
+
+    def counted(*args, **kw):
+        plain_calls.append(1)
+        return plain_ssd(*args, **kw)
+    out, launches = {}, {k: 0 for k in kernels}
     for name, batch, seq, layers in TRAIN_FAMILIES:
         full = get_config(name)
         cfg = full if layers is None else dataclasses.replace(
@@ -2373,6 +2611,9 @@ def phase_train_families(seed: int) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         configs.get_config = lambda n: cfg if n == name else get_config(n)
+        ssd_scan.ssd_chunk_intra_heads_reference = counted
+        plain_calls.clear()
+        before = {k: kn.launches for k, kn in kernels.items()}
         t0 = time.perf_counter()
         try:
             keep = {}
@@ -2385,8 +2626,18 @@ def phase_train_families(seed: int) -> dict:
             del keep
         finally:
             configs.get_config = get_config
+            ssd_scan.ssd_chunk_intra_heads_reference = plain_ssd
             shutil.rmtree(ckpt, ignore_errors=True)
         wall = time.perf_counter() - t0
+        per_step = {k: (kn.launches - before[k]) / len(records)
+                    for k, kn in kernels.items()}
+        for k in kernels:
+            launches[k] += kernels[k].launches - before[k]
+        mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+        assert per_step == {"flash_attention": 0, "ssd_chunk": 2 * mamba,
+                            "ssd_chunk_bwd": mamba, "chunk_accum": 0}, \
+            (name, per_step)
+        assert not plain_calls, (name, len(plain_calls))
         losses = [r["loss"] for r in records]
         assert len(records) == 3 and all(math.isfinite(l) for l in losses), \
             (name, losses)
@@ -2409,15 +2660,15 @@ def phase_train_families(seed: int) -> dict:
                    / sum(r["seconds"] for r in steady),
                    steady_positions_per_s=batch * (seq + frontend)
                    * len(steady) / sum(r["seconds"] for r in steady),
+                   launches_per_step=per_step,
+                   plain_ssd_calls=len(plain_calls),
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated()
                    / 1e9, wall_s=wall,
                    checkpoint_writes_skipped_at_steps=skipped.steps)
         emit("train_families", **res)
         out[name] = res
-    # under autograd attention and the SSD block take their plain paths;
     # one rank, no collective
-    out["launches"] = {k.name: k.launches for k in kernels}
-    assert not any(out["launches"].values()), out["launches"]
+    out["launches"] = launches
     emit("train_families_launches", **out["launches"])
     torch.cuda.empty_cache()
     return out
@@ -2554,13 +2805,13 @@ def _serve_both(args, mesh, prompts, model, kernels) -> dict:
     for path in ("plain", "mesh"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
+        for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
         engine, done = launch_serve.serve(
             args, mesh=mesh if path == "mesh" else None, prompts=prompts)
         wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
+        launches = {name: k.launches for name, k in kernels.items()}
         st = engine.stats
         serve[path] = dict(
             wall_s=wall, launches=launches,
@@ -2589,15 +2840,16 @@ def _serve_both(args, mesh, prompts, model, kernels) -> dict:
 def _train_both(argv: list, mesh, kernels) -> dict:
     """`launch.train.run` of `argv` on the plain path and on `mesh` (FSDP+TP
     placements), each with every kernel's count from 0: losses within
-    TRAIN_LOSS_RTOL of each other, finite, and no kernel launched (under
-    autograd attention and the SSD block take their plain paths)."""
+    TRAIN_LOSS_RTOL of each other, finite, the same launches on both, and
+    no flash or chunk_accum launch (under autograd attention takes its
+    plain path; the SSD block its forward and backward kernels)."""
     from repro_torch.launch import train as launch_train
     train = {}
     for path in ("plain", "mesh"):
         ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for k in kernels:
+        for k in kernels.values():
             k.launches = 0
         try:
             with _SkipCheckpointWrites():
@@ -2608,7 +2860,7 @@ def _train_both(argv: list, mesh, kernels) -> dict:
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
         train[path] = dict(
-            launches={k.name: k.launches for k in kernels},
+            launches={name: k.launches for name, k in kernels.items()},
             losses=[r["loss"] for r in records],
             step_s=[r["seconds"] for r in records],
             max_memory_allocated_gb=torch.cuda.max_memory_allocated()
@@ -2616,7 +2868,9 @@ def _train_both(argv: list, mesh, kernels) -> dict:
     loss_err = max(abs(a - b) / abs(a) for a, b in zip(
         train["plain"]["losses"], train["mesh"]["losses"]))
     assert all(math.isfinite(l) for l in train["mesh"]["losses"])
-    assert not any(train["mesh"]["launches"].values())
+    assert train["mesh"]["launches"] == train["plain"]["launches"]
+    assert not train["mesh"]["launches"]["flash_attention"] and \
+        not train["mesh"]["launches"]["chunk_accum"]
     assert loss_err <= TRAIN_LOSS_RTOL, loss_err
     torch.cuda.empty_cache()
     return dict(max_rel_loss_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
@@ -2640,12 +2894,14 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
-                                     SSD_KERNEL)
+                                     SSD_BWD_KERNEL, SSD_KERNEL)
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.models.hybrid import num_shared_sites
-    kernels = (FLASH_KERNEL, CHUNK_ACCUM_KERNEL, SSD_KERNEL)
+    kernels = {"flash_attention": FLASH_KERNEL,
+               "chunk_accum": CHUNK_ACCUM_KERNEL, "ssd_chunk": SSD_KERNEL,
+               "ssd_chunk_bwd": SSD_BWD_KERNEL}
     if DEV == "cuda":
         torch.cuda.set_device(0)
     dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
@@ -2666,7 +2922,7 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
         for path in served["serve"]:  # flash once per layer per prefill
             assert served["serve"][path]["launches"] == {
                 "flash_attention": cfg.num_layers * batches,
-                "chunk_accum": 0, "ssd_chunk": 0}, path
+                "chunk_accum": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0}, path
 
         train = _train_both(
             ["--arch", "gemma2-2b", "--steps", str(MESH1_TRAIN_STEPS),
@@ -2690,7 +2946,8 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
             for path in both["serve"]:
                 assert both["serve"][path]["launches"] == {
                     "flash_attention": sites, "chunk_accum": 0,
-                    "ssd_chunk": scfg.num_layers}, (name, path)
+                    "ssd_chunk": scfg.num_layers, "ssd_chunk_bwd": 0}, \
+                    (name, path)
             ssm[name] = dict(layers=scfg.num_layers, d_model=scfg.d_model,
                              ssm_chunk=scfg.ssm_chunk, prompts=list(plens),
                              new_tokens=MESH1_SSM_NEW_TOKENS,
@@ -2698,6 +2955,14 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
                              flash_launches_per_prefill=sites, **both)
         ssm_train = _train_both(MESH1_SSM_TRAIN + ["--device", DEV, "--seed",
                                                    str(seed)], mesh, kernels)
+        # a step with remat: the SSD forward twice a Mamba2 layer (forward
+        # and recomputation), the backward once, on both paths
+        layers = get_config(MESH1_SSM_TRAIN[1]).num_layers
+        steps = int(MESH1_SSM_TRAIN[MESH1_SSM_TRAIN.index("--steps") + 1])
+        for path in ("plain", "mesh"):
+            got = ssm_train[path]["launches"]
+            assert (got["ssd_chunk"], got["ssd_chunk_bwd"]) == (
+                2 * layers * steps, layers * steps), (path, got)
     finally:
         dist.destroy_process_group()
     res = dict(mesh={"data": 1, "model": 1},
@@ -3148,8 +3413,8 @@ def main() -> int:
                                     serve_vlm=vlm["flash_launches"],
                                     serve_audio=audio["flash_launches"])
     for name, n in fam_train["launches"].items():
-        paths[name]["train_families"] = n
-    for name in paths:
+        paths.setdefault(name, {})["train_families"] = n
+    for name in ("flash_attention", "chunk_accum", "ssd_chunk"):
         paths[name]["model_parallel_mesh1"] = \
             mesh1["serve"]["mesh"]["launches"][name]
         paths[name]["model_parallel_mesh1_train"] = \
@@ -3162,6 +3427,9 @@ def main() -> int:
         paths[name]["dryrun_cards"] = sum(c["launches"][name]
                                           for c in dry["cells"])
         paths[name]["roofline_measured"] = measured["launches"][name]
+    for cell in ("train", "ssm_train"):
+        paths["ssd_chunk_bwd"][f"model_parallel_mesh1_{cell}"] = \
+            mesh1[cell]["mesh"]["launches"]["ssd_chunk_bwd"]
     for name, by_example in examples["launches"].items():
         for example, n in by_example.items():
             paths[name][f"examples_{example}"] = n
@@ -3197,7 +3465,19 @@ def main() -> int:
         "held_against_plain": True,
         "ms": ssd["kernel_ms"], "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
-        "library_ms": ssd["library_ms"]}]}))
+        "library_ms": ssd["library_ms"]}, {
+        "name": "ssd_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+        "replaces": None,
+        "launches": fam_train["launches"]["ssd_chunk_bwd"],
+        "launches_by_path": paths["ssd_chunk_bwd"],
+        "max_grad_errs": ssd["backward_train"]["grad_errs"],
+        "held_against_plain": True,
+        "ms": ssd["backward_train"]["kernel_ms"],
+        "plain_ms": ssd["backward_train"]["plain_autograd_ms"],
+        "bound_ms": ssd["backward_train"]["bound_ms"],
+        "bound_by": ssd["backward_train"]["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,12 +5,13 @@
     chunk_accum      csrc/chunk_accum.cu      (replaces the Pallas
                      src/repro/kernels/chunk_accum.py)
     ssd_chunk        csrc/ssd_chunk.cu        (replaces the Pallas
-                     src/repro/kernels/ssd_scan.py)
+                     src/repro/kernels/ssd_scan.py; its backward, a
+                     second entry point, replaces none)
 
 Kernels build with nvcc at first launch (`build.py`), never at import.
-flash_attention and ssd_chunk run through custom ops (`KERNEL_OPS`), each
-with a fake implementation and a FLOP formula, so fake tensors (the dry
-run) reach them and `analysis.hlo_count` counts them.
+flash_attention and ssd_chunk (forward and backward) run through custom
+ops (`KERNEL_OPS`), each with a fake implementation and a FLOP formula, so
+fake tensors (the dry run) reach them and `analysis.hlo_count` counts them.
 """
 import torch
 
@@ -22,8 +23,11 @@ from .ops import flash_attention_bshd, ssd_chunk_intra_bshp  # noqa: F401
 from .ref import (chunk_accum_indexed_reference,  # noqa: F401
                   chunk_accum_reference, mha_reference, ssd_chunk_reference,
                   ssd_chunk_intra_reference)
+from .ssd_scan import BWD_KERNEL as SSD_BWD_KERNEL  # noqa: F401
 from .ssd_scan import KERNEL as SSD_KERNEL  # noqa: F401
-from .ssd_scan import ssd_chunk_intra, ssd_chunk_intra_heads  # noqa: F401
+from .ssd_scan import (ssd_chunk_intra, ssd_chunk_intra_bwd_heads,  # noqa
+                       ssd_chunk_intra_heads)
 
 KERNEL_OPS = (torch.ops.repro_torch.flash_attention,
-              torch.ops.repro_torch.ssd_chunk_intra_heads)
+              torch.ops.repro_torch.ssd_chunk_intra_heads,
+              torch.ops.repro_torch.ssd_chunk_intra_bwd)

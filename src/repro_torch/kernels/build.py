@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface: `nvcc` compiles it for
 Hopper (`sm_90a`) into `build/<name>-<hash>.so` beside this file, where the
 hash covers the source, the shared headers `csrc/*.cuh` and the flags, and
 `ctypes` loads it.  Nothing includes PyTorch's headers, so a build takes
-seconds.  A build runs at a kernel's first launch, never at import;
-`build(name, force=True)` rebuilds.
+seconds (ssd_chunk.cu, forward and backward, about half a minute).  A
+build runs at a kernel's first launch, never at import; `build(name,
+force=True)` rebuilds.
 
 `Kernel` binds one library's C entry point and counts its launches.  Every
 entry point returns the CUDA error of its launch, and every source exports
@@ -25,6 +26,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# A library's own flags.  --split-compile=0: ptxas works on the kernels in
+# parallel, one thread a CPU (ssd_chunk.cu's 98 kernels: 86 s in one
+# thread, 31 s split over 8 cores); the other libraries build as before.
+LIBRARY_FLAGS = {"ssd_chunk": ["--split-compile=0"]}
+
+
+def nvcc_flags(name: str) -> list:
+    return NVCC_FLAGS + LIBRARY_FLAGS.get(name, [])
 
 
 def nvcc_path() -> str:
@@ -45,7 +54,7 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -60,7 +69,8 @@ def build(name: str, force: bool = False) -> tuple[Path, str]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [nvcc_path(), *nvcc_flags(name), "-o", tmp,
+             str(CSRC / f"{name}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")

@@ -2,8 +2,10 @@
 // entry point that Python loads with ctypes.
 //
 // Replaces the Pallas TPU kernel `_ssd_chunk_kernel` / `ssd_chunk_intra` in
-// src/repro/kernels/ssd_scan.py:32.  For every (batch, head, chunk of Q rows)
-// it computes, with cum = cumsum(dt * a) over the chunk:
+// src/repro/kernels/ssd_scan.py:32.  (A second entry point,
+// `repro_ssd_chunk_bwd`, is the block's backward, which replaces no TPU
+// kernel: its section below.)  For every (batch, head, chunk of Q rows) it
+// computes, with cum = cumsum(dt * a) over the chunk:
 //
 //   L[i, j] = exp(cum[i] - cum[j]) for i >= j, else 0            [Q, Q]
 //   y[i]    = sum_j (C[i] . B[j]) L[i, j] x[j] dt[j]             [Q, P]
@@ -754,6 +756,1179 @@ bool rows_aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss) {
          sh % 8 == 0 && ss % 8 == 0;
 }
 
+// ---------------------------------------------------------------------------
+// The backward: `repro_ssd_chunk_bwd`
+//
+// Replaces no TPU kernel: the Pallas kernel has no backward.  It was added
+// so that training runs the block on the card (the forward kernel under
+// autograd, `kernels/ops.py`): before it, training ran the plain version
+// under autograd, which writes several float32 [B, H, L, Q, Q] tensors a
+// layer.  Given dy [Q, P] and dstates [P, N] of every (batch, head, chunk),
+// with S = C B^T (shared by a group's heads), L the masked decay, M = S o L,
+// xdt = x dt and w = exp(cum[Q-1] - cum) the decay of the states:
+//
+//   dxdt  = M^T dy + (B o w) dstates^T        dx = dxdt dt
+//   dS    = sum_h (dy xdt^T) o L              dC = dS B,  dB = dS^T C
+//   dB   += sum_h w o (xdt dstates)
+//   dcum  = rowsum(dM o M) - colsum(dM o M) - g, dM = dy xdt^T,
+//           g = w o rowsum(B o (xdt dstates)), dcum[Q-1] += sum g
+//   d(dt a) = reverse cumsum of dcum; ddt = rowsum(dxdt o x) + d(dt a) a,
+//   da = sum d(dt a) dt
+//
+// What bounds it on an H100: at mamba2-780m's train shape (B = 2, S = 4096,
+// 48 heads, P = 64, N = 128, Q = 512) it must read x, dy (bf16, 50 MB
+// each), dstates (f32, 25 MB), b, c, dt and write dx (50 MB), ddt, db, dc:
+// ~188 MB, 0.056 ms at 3.35 TB/s.  Its products over the causal pairs
+// i >= j are ~40 GFLOP (68 counting the whole Q x Q), 0.041 ms at 989
+// TFLOP/s: the bound is the bytes, and the operations are close behind.
+// As in the forward, no [Q, Q] tensor may reach memory, and the decay
+// math (a float64 difference, its rounding and an expf per entry of every
+// head's Q x Q) costs about as much on the CUDA cores as the products.
+//
+// The design answers with three passes after the forward's cum pre-pass
+// (`ssd_chunk_cum`, so cum is the forward's to the bit), all over 64 x 64
+// tiles of the causal pairs, in registers and shared memory:
+//   dS blocks (`ssd_bwd_ds_*`), one per (batch, group, chunk, own 64-row
+//   tile, kind, split of the group's heads): a dC block owns 64 query rows
+//   i and walks the key tiles j <= i, a dB block owns 64 key rows j and
+//   walks the query tiles i >= j.  For each tile it forms S once, then for
+//   each head the 64 x 64 tile of dy x^T (or x dy^T), times dt and L,
+//   summed over the heads in registers: that is dS's tile, with no head
+//   sum ever in memory.  dS then goes to the tensor cores once per tile
+//   (dC += dS B_j, dB += dS^T C_i).  The rows of dM o M are summed on the
+//   way, each block's own rows only, so dcum needs no atomic.  A dB block
+//   adds the states' term head by head at the end.  The heads of a group
+//   are split over up to MAX_SPLIT_HEADS-head blocks to fill the card;
+//   each split writes its own partial dB, dC, added in order afterwards.
+//   dx blocks (`ssd_bwd_dx_*`), one per (batch, head, chunk, key tile j):
+//   (B_j dstates^T) first, then over the query tiles i >= j, S^T = B_j
+//   C_i^T, times L, and dxdt += (S^T o L) dy_i, with g and rowsum(dxdt o
+//   x) on the way.  A finishing pass (`ssd_bwd_finish`) per (batch, head,
+//   chunk) sums dcum's four parts, takes its reverse cumsum in float64 and
+//   writes ddt and da's chunk sums.
+// Every sum over heads, tiles or rows runs in a fixed order: the same
+// inputs give bit-equal gradients.  The masks are selects before the exp.
+//
+// bf16: one warpgroup a block, every product a warpgroup MMA (f32
+// accumulators) on operands from shared memory (cp.async, the forward's
+// swizzled tiles), the float32 ones (dS, S^T o L, dstates, x dt w) in two
+// bf16 parts as in the forward, as A operands in registers.
+// fp32: the same passes on the CUDA cores (16 x 16 threads a block), the
+// products as float32 FMAs over padded shared-memory tiles.
+
+// rows' four parts, float64: the rows and columns of dM o M summed (in
+// float64, as the plain version sums them, so that their equal terms
+// cancel), the states' decay term g, and x's share of ddt
+enum { kPlus = 0, kMinus = 1, kDecay = 2, kDdtX = 3 };
+
+struct BwdParams {
+  Params f;          // x, dt, a, b, c (their strides; b, c by group), work
+  const void* dy;
+  const float* dst;
+  void* dx;
+  float* ddt;
+  float* da;         // [B, H, L]: d(dt a) dt summed over each chunk
+  float* part;       // [2, splits, B, G, S, N]: dB, then dC, each split's
+  double* rows;      // [4, B, H, S]: kPlus, kMinus, kDecay, kDdtX
+  int batch, groups, seqlen, splits, ndim;
+  int64_t dy_sb, dy_sh, dy_ss;
+  int64_t dst_sb, dst_sh, dst_sl;
+  int64_t dx_sb, dx_sh, dx_ss;
+  int64_t ddt_sb, ddt_sh, ddt_ss;
+};
+
+// The work buffer of (batch * head bh, chunk l): cum (double) and dt.
+__device__ __forceinline__ const uint8_t* work_of(const BwdParams& p, int bh,
+                                                  int l) {
+  const int padded = p.f.row_tiles * kTile;
+  return static_cast<const uint8_t*>(p.f.work) +
+         ((int64_t)bh * (p.seqlen / p.f.chunk) + l) * 12 * (int64_t)padded;
+}
+
+// rows' part `kind` of (batch * head bh), from the chunk's first row row0
+__device__ __forceinline__ double* rows_of(const BwdParams& p, int kind,
+                                           int bh, int64_t row0) {
+  return p.rows + ((int64_t)kind * p.batch * p.f.heads + bh) * p.seqlen +
+         row0;
+}
+
+// part's [S, N] slice of (kind, split, batch, group)
+__device__ __forceinline__ float* part_of(const BwdParams& p, int kind,
+                                          int split, int bi, int g) {
+  return p.part + ((((int64_t)kind * p.splits + split) * p.batch + bi) *
+                       p.groups + g) * p.seqlen * p.ndim;
+}
+
+// A dS block's share, from blockIdx: grid (B * G, chunks, 2 * row_tiles *
+// splits).  kind 0 (dB): own key tile j, query tiles own .. last; kind 1
+// (dC): own query tile i, key tiles 0 .. own; the kinds interleaved and the
+// longest walks first.  Heads [h_lo, h_hi) of group g.
+struct DsBlock {
+  int bi, g, l, kind, own, first, last, h_lo, h_hi, split;
+  __device__ explicit DsBlock(const BwdParams& p) {
+    const int t = p.f.row_tiles;
+    bi = blockIdx.x / p.groups;
+    g = blockIdx.x % p.groups;
+    l = blockIdx.y;
+    split = blockIdx.z % p.splits;
+    const int kz = blockIdx.z / p.splits;
+    kind = kz & 1;
+    const int rank = kz >> 1;
+    own = kind == 0 ? rank : t - 1 - rank;
+    first = kind == 0 ? own : 0;
+    last = kind == 0 ? t - 1 : own;
+    const int hpg = p.f.heads / p.groups;
+    h_lo = g * hpg + split * hpg / p.splits;
+    h_hi = g * hpg + (split + 1) * hpg / p.splits;
+  }
+};
+
+// Sums d(dt a) into ddt and da: per (batch * head, chunk), kRuns threads,
+// each a run of rows summed from the chunk's end in float64, the runs'
+// totals scanned from the last, then each run adds the total after it.
+__global__ void __launch_bounds__(kRuns) ssd_bwd_finish(const BwdParams p) {
+  __shared__ double runs[kRuns];
+  const int q = p.f.chunk, bh = blockIdx.x, l = blockIdx.y;
+  const int bi = bh / p.f.heads, hi = bh % p.f.heads;
+  const int64_t row0 = (int64_t)l * q;
+  const double* plus = rows_of(p, kPlus, bh, row0);
+  const double* minus = rows_of(p, kMinus, bh, row0);
+  const double* dec = rows_of(p, kDecay, bh, row0);
+  const double* ddtx = rows_of(p, kDdtX, bh, row0);
+  const float* dtp = p.f.dt + bi * p.f.dt_sb + hi * p.f.dt_sh + row0 * p.f.dt_ss;
+  float* ddt = p.ddt + bi * p.ddt_sb + hi * p.ddt_sh + row0 * p.ddt_ss;
+  const float a = p.f.a[bi * p.f.a_sb + hi * p.f.a_sh];
+  const int t = threadIdx.x;
+  const int per = (q + kRuns - 1) / kRuns;
+  const int lo = min(t * per, q), hi_row = min(lo + per, q);
+
+  // the states' decay term's total goes to dcum[q - 1]
+  double s = 0.0;
+  for (int j = lo; j < hi_row; ++j) s += dec[j];
+  runs[t] = s;
+  __syncthreads();
+  for (int half = kRuns / 2; half > 0; half >>= 1) {
+    if (t < half) runs[t] += runs[t + half];
+    __syncthreads();
+  }
+  const double dec_total = runs[0];
+  __syncthreads();
+
+  auto dcum = [&](int j) {
+    return plus[j] - minus[j] - dec[j] + (j == q - 1 ? dec_total : 0.0);
+  };
+  s = 0.0;
+  for (int j = hi_row - 1; j >= lo; --j) s += dcum(j);
+  runs[t] = s;
+  __syncthreads();
+  for (int off = 1; off < kRuns; off <<= 1) {   // inclusive scan from the end
+    const double v = t + off < kRuns ? runs[t + off] : 0.0;
+    __syncthreads();
+    runs[t] += v;
+    __syncthreads();
+  }
+  double after = t + 1 < kRuns ? runs[t + 1] : 0.0;
+  __syncthreads();
+  double da = 0.0;
+  for (int j = hi_row - 1; j >= lo; --j) {
+    after += dcum(j);
+    const float dda = (float)after;   // d(dt a), as autograd casts it
+    const float dtj = dtp[j * p.f.dt_ss];
+    ddt[j * p.ddt_ss] = (float)ddtx[j] + dda * a;
+    da += (double)(dda * dtj);
+  }
+  runs[t] = da;
+  __syncthreads();
+  for (int half = kRuns / 2; half > 0; half >>= 1) {
+    if (t < half) runs[t] += runs[t + half];
+    __syncthreads();
+  }
+  if (t == 0) p.da[(int64_t)bh * gridDim.y + l] = (float)runs[0];
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward: tensor cores
+
+namespace bf16 {
+
+template <int P, int N>
+struct BwdTiles {
+  static constexpr int N_BYTES = kTile * N * 2;    // a tile of B or C
+  static constexpr int P_BYTES = kTile * P * 2;    // a tile of x or dy
+  // dstates' [P, N] block in bf16, whole 1024-byte units
+  static constexpr int DST_BYTES = (P * N * 2 + 1023) / 1024 * 1024;
+  // dx blocks: B_j, C's one stage and dy's two stages (dstates' parts lie
+  // over these three, one part at a time), then cum and dt of the chunk
+  static constexpr int DX_TILES = 2 * N_BYTES + 2 * P_BYTES;
+  static_assert(DST_BYTES <= N_BYTES + 2 * P_BYTES, "dstates' tile");
+  static constexpr size_t dx_smem(int padded) {
+    return 1024 + DX_TILES + 12 * (size_t)padded;
+  }
+  // dS blocks: the own tile of B or C, the other side's two stages, the
+  // two stages of the own and other rows of x or dy (dstates' two parts
+  // lie over these four), then per stage cum of the own and other rows and
+  // dt of the key rows
+  static constexpr int DS_TILES = 3 * N_BYTES + 4 * P_BYTES;
+  static_assert(2 * DST_BYTES <= 4 * P_BYTES, "dstates' two tiles");
+  static constexpr int DS_SMALL = 2 * (2 * 8 * kTile + 4 * kTile);
+  static constexpr size_t ds_smem() { return 1024 + DS_TILES + DS_SMALL; }
+  static constexpr int DX_BLOCKS = P >= 128 ? 1 : 2;
+};
+
+// D[64 x NB] (+)= A Bt^T over K = KD: A a 64-row tile and Bt an NB-row
+// tile, both K-major (rows of KD), as the forward's `issue_scores`.
+template <int KD, int NB>
+__device__ __forceinline__ void mma_nt(float (&d)[NB / 2], uint32_t a,
+                                       uint32_t bt, bool accumulate) {
+  constexpr int W = hopper::TileShape<KD>::W, CB = hopper::TileShape<KD>::CB;
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk) {
+    const uint32_t col = (kk * 16) % CB * 2, blk = (kk * 16) / CB;
+    hopper::Wgmma<NB>::template ss<0>(
+        d, hopper::smem_desc<W>(a + blk * (kTile * W) + col, 16, 8 * W),
+        hopper::smem_desc<W>(bt + blk * (NB * W) + col, 16, 8 * W),
+        accumulate || kk > 0);
+  }
+}
+
+// D[64 x NB] += A[64 x K] B[K x NB]: A from registers (K / 16 steps of
+// four bf16 pairs), B a tile of K rows, MN-major, as `issue_times_x`.
+template <int NB, int K>
+__device__ __forceinline__ void mma_rn(float (&d)[NB / 2],
+                                       const uint32_t (&a)[K / 4],
+                                       uint32_t b) {
+  constexpr int W = hopper::TileShape<NB>::W;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t ak[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                            a[4 * kk + 3]};
+    hopper::Wgmma<NB>::template rs<1>(
+        d, ak, hopper::smem_desc<W>(b + kk * 16 * W, K * W, 8 * W), 1);
+  }
+}
+
+// dstates' [P, N] block into the tile at `tile` as P rows of N (a B or C
+// tile's layout): part 0 its bf16 rounding, 1 the rounded remainder.
+// raw: the generic address of shared-memory address 0.
+template <int P, int N>
+__device__ __forceinline__ void store_dst(uint8_t* raw, uint32_t tile,
+                                          const float* src, int part) {
+  using Load = hopper::TileLoader<N, kThreads>;
+  for (int i = threadIdx.x; i < P * (N / 8); i += kThreads) {
+    const int r = i / (N / 8), ch = i % (N / 8);
+    const float4 v0 = *reinterpret_cast<const float4*>(src + r * N + 8 * ch);
+    const float4 v1 =
+        *reinterpret_cast<const float4*>(src + r * N + 8 * ch + 4);
+    const float f[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t hi, lo;
+      split(f[2 * e], f[2 * e + 1], hi, lo);
+      w[e] = part == 0 ? hi : lo;
+    }
+    *reinterpret_cast<uint4*>(raw + tile + Load::template offset<P>(r, ch)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// bytes [0, n) of src into shared memory at dst by 16-byte cp.async
+__device__ __forceinline__ void cp_bytes(uint32_t dst, const uint8_t* src,
+                                         int n) {
+  for (int i = 16 * threadIdx.x; i < n; i += 16 * kThreads)
+    hopper::cp_async_16(dst + i, src + i, 16);
+}
+
+// the bf16 pair at (row, col) of a [S, W] slice as floats; zero past the
+// chunk (row >= q)
+__device__ __forceinline__ float2 pair_at(const T* src, int64_t stride,
+                                          int row, int col, int q) {
+  if (row >= q) return make_float2(0.f, 0.f);
+  const uint32_t v =
+      *reinterpret_cast<const uint32_t*>(src + row * stride + col);
+  return make_float2(hopper::bf16_lo(v), hopper::bf16_hi(v));
+}
+
+// sums over the four threads of a quad (the threads of one row)
+template <typename V>
+__device__ __forceinline__ V quad_sum(V v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// dx blocks: grid (B * H, chunks, row tiles), key tile j0 = 64 z (the
+// longest walk first).  dxdt[j] = w[j] (B_j dstates^T) + sum_{i >= j}
+// (S^T o L)[j, i] dy[i]; dx = dxdt dt; rows: kDecay (g) and kDdtX.
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, BwdTiles<P, N>::DX_BLOCKS)
+ssd_bwd_dx_bf16(const BwdParams p) {
+  using L = BwdTiles<P, N>;
+  constexpr int NO = P / 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::smem_addr(smem_raw);
+  uint8_t* raw = smem_raw - base;          // shared address 0, generic
+  const uint32_t s_b = (base + 1023) & ~1023u;
+  const uint32_t s_c = s_b + L::N_BYTES;
+  const uint32_t s_dy = s_c + L::N_BYTES;
+  const int padded = p.f.row_tiles * kTile;
+  double* cum = reinterpret_cast<double*>(raw + s_dy + 2 * L::P_BYTES);
+  float* sdt = reinterpret_cast<float*>(cum + padded);
+  auto dy_stage = [&](int t) { return s_dy + (uint32_t)(t & 1) * L::P_BYTES; };
+
+  const int q = p.f.chunk, bh = blockIdx.x, l = blockIdx.y;
+  const int bi = bh / p.f.heads, hi = bh % p.f.heads;
+  const int g = hi / (p.f.heads / p.groups);
+  const int jt = blockIdx.z, j0 = jt * kTile;
+  const int64_t row0 = (int64_t)l * q;
+  const T* x = static_cast<const T*>(p.f.x) + bi * p.f.x_sb + hi * p.f.x_sh +
+               row0 * p.f.x_ss;
+  const T* dy = static_cast<const T*>(p.dy) + bi * p.dy_sb + hi * p.dy_sh +
+                row0 * p.dy_ss;
+  const T* bp = static_cast<const T*>(p.f.b) + bi * p.f.b_sb +
+                g * p.f.b_sh + row0 * p.f.b_ss;
+  const T* cp = static_cast<const T*>(p.f.c) + bi * p.f.c_sb +
+                g * p.f.c_sh + row0 * p.f.c_ss;
+  const float* dst = p.dst + bi * p.dst_sb + hi * p.dst_sh + l * p.dst_sl;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int r = 16 * warp + lane / 4;        // this thread's rows r, r + 8
+  const int ja = j0 + r, jb = j0 + r + 8;
+  const hopper::TileLoader<N, kThreads> lc(tid);
+  const hopper::TileLoader<P, kThreads> lp(tid);
+
+  lc.template load<kTile>(s_b, bp, p.f.b_ss, j0, q);
+  cp_bytes(hopper::smem_addr(cum), work_of(p, bh, l), 12 * padded);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  // (B_j dstates^T)[j, p], dstates in two bf16 parts, one at a time over
+  // C's stage and dy's
+  float t[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) t[i] = 0.f;
+  for (int part = 0; part < 2; ++part) {
+    store_dst<P, N>(raw, s_c, dst, part);
+    hopper::fence_proxy_async();
+    __syncthreads();
+    hopper::fence_operands(t);
+    hopper::wgmma_fence();
+    mma_nt<N, P>(t, s_b, s_c, part > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(t);
+    __syncthreads();          // every warp's product is done with the tile
+  }
+  lc.template load<kTile>(s_c, cp, p.f.c_ss, j0, q);
+  hopper::cp_async_commit();
+
+  // w[j] (B_j dstates^T) starts dxdt; g[j] = w dt sum_p x t
+  const double last = cum[q - 1];
+  const float wa = ja < q ? expf((float)(last - cum[ja])) : 0.f;
+  const float wb = jb < q ? expf((float)(last - cum[jb])) : 0.f;
+  float acc[NO];
+  float ga = 0.f, gb = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; i += 4) {
+    const int col = 8 * (i / 4) + 2 * quad;
+    const float2 xa = pair_at(x, p.f.x_ss, ja, col, q);
+    const float2 xb = pair_at(x, p.f.x_ss, jb, col, q);
+    ga += xa.x * t[i] + xa.y * t[i + 1];
+    gb += xb.x * t[i + 2] + xb.y * t[i + 3];
+    acc[i] = wa * t[i];
+    acc[i + 1] = wa * t[i + 1];
+    acc[i + 2] = wb * t[i + 2];
+    acc[i + 3] = wb * t[i + 3];
+  }
+  ga = quad_sum(ga);
+  gb = quad_sum(gb);
+  double* rows_dec = rows_of(p, kDecay, bh, row0);
+  if (quad == 0) {
+    if (ja < q) rows_dec[ja] = wa * sdt[ja] * ga;
+    if (jb < q) rows_dec[jb] = wb * sdt[jb] * gb;
+  }
+
+  // Software pipeline, as the forward's: iteration t issues S^T[t] = B_j
+  // C[t]^T and dxdt += v[t-1] dy[t-1] together, then forms v[t] = S^T[t] o
+  // L from the fragments.  dy[t] is loaded from the top of iteration t;
+  // C[t+1] as soon as every warp's S^T[t] is done.
+  const int t_first = jt, t_last = p.f.row_tiles - 1;
+  const double cum_a = cum[ja], cum_b = cum[jb];
+  float s[kTile / 2];
+  uint32_t vh[16], vl[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) vh[i] = vl[i] = 0;
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) s[i] = 0.f;
+  for (int it = t_first; it <= t_last; ++it) {
+    hopper::cp_async_wait<0>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+    lp.template load<kTile>(dy_stage(it), dy, p.dy_ss, it * kTile, q);
+    hopper::cp_async_commit();
+
+    hopper::fence_operands(s);
+    hopper::fence_operands(acc);
+    hopper::wgmma_fence();
+    mma_nt<N, kTile>(s, s_b, s_c, false);
+    hopper::wgmma_commit();
+    if (it > t_first) {
+      mma_rn<P, kTile>(acc, vh, dy_stage(it - 1));
+      mma_rn<P, kTile>(acc, vl, dy_stage(it - 1));
+    }
+    hopper::wgmma_commit();
+    if (it > t_first)
+      hopper::wgmma_wait<1>();
+    else
+      hopper::wgmma_wait<0>();
+    hopper::fence_operands(s);
+    if (it < t_last) {
+      __syncthreads();            // every warp's S^T[it] is done: C is free
+      lc.template load<kTile>(s_c, cp, p.f.c_ss, (it + 1) * kTile, q);
+      hopper::cp_async_commit();
+    }
+    // s[4m + e] is row r + 8 (e / 2), query column 8 m + 2 quad + e % 2
+    const int i0 = it * kTile;
+#pragma unroll
+    for (int k = 0; k < kTile / 2; k += 4) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = i0 + 2 * (k + quad) + e;
+        const double ci = cum[i];
+        const bool oka = i >= ja && i < q, okb = i >= jb && i < q;
+        s[k + e] *= expf(oka ? (float)(ci - cum_a) : -INFINITY);
+        s[k + 2 + e] *= expf(okb ? (float)(ci - cum_b) : -INFINITY);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    hopper::fence_operands(vh);
+    hopper::fence_operands(vl);
+#pragma unroll
+    for (int i = 0; i < kTile / 2; i += 2)
+      split(s[i], s[i + 1], vh[i / 2], vl[i / 2]);
+  }
+  hopper::cp_async_wait<0>();
+  hopper::fence_proxy_async();
+  __syncthreads();
+  hopper::wgmma_fence();
+  mma_rn<P, kTile>(acc, vh, dy_stage(t_last));
+  mma_rn<P, kTile>(acc, vl, dy_stage(t_last));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands(acc);
+
+  // dx = dxdt dt; kDdtX = sum_p dxdt x
+  T* dxp = static_cast<T*>(p.dx) + bi * p.dx_sb + hi * p.dx_sh +
+           row0 * p.dx_ss;
+  const float dta = sdt[ja], dtb = sdt[jb];
+  float ea = 0.f, eb = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; i += 4) {
+    const int col = 8 * (i / 4) + 2 * quad;
+    const float2 xa = pair_at(x, p.f.x_ss, ja, col, q);
+    const float2 xb = pair_at(x, p.f.x_ss, jb, col, q);
+    ea += acc[i] * xa.x + acc[i + 1] * xa.y;
+    eb += acc[i + 2] * xb.x + acc[i + 3] * xb.y;
+    if (ja < q)
+      *reinterpret_cast<uint32_t*>(dxp + ja * p.dx_ss + col) =
+          hopper::pack_bf16(acc[i] * dta, acc[i + 1] * dta);
+    if (jb < q)
+      *reinterpret_cast<uint32_t*>(dxp + jb * p.dx_ss + col) =
+          hopper::pack_bf16(acc[i + 2] * dtb, acc[i + 3] * dtb);
+  }
+  ea = quad_sum(ea);
+  eb = quad_sum(eb);
+  double* rows_x = rows_of(p, kDdtX, bh, row0);
+  if (quad == 0) {
+    if (ja < q) rows_x[ja] = ea;
+    if (jb < q) rows_x[jb] = eb;
+  }
+}
+
+// dS blocks (see DsBlock): for each other tile, S (own rows against the
+// other's) once, then per head D = U V^T (dB: x_h[j] dy_h[i]^T, dC: dy_h[i]
+// x_h[j]^T) and w = D dt[j] L, summed over the heads into dS and, times S,
+// over the tile's columns into the head's dcum rows (kMinus, kPlus); then
+// dB += dS C_i or dC += dS B_j.  A dB block then adds sum_h (x_h dt_h w_h)
+// dstates_h.  The sum goes to this split's part.
+// DB: the block's kind is dB (else dC), a template argument so that each
+// kind's loop is compiled without the other's selects.
+template <int P, int N, bool DB>
+__device__ __forceinline__ void ds_block(const BwdParams& p,
+                                         const DsBlock& blk) {
+  using L = BwdTiles<P, N>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = hopper::smem_addr(smem_raw);
+  uint8_t* raw = smem_raw - base;
+  const uint32_t s_own = (base + 1023) & ~1023u;
+  const uint32_t s_oth = s_own + L::N_BYTES;              // two stages
+  const uint32_t s_uv = s_oth + 2 * L::N_BYTES;            // U0 U1 V0 V1
+  const uint32_t s_small = s_uv + 4 * L::P_BYTES;          // two stages
+  auto u_stage = [&](int k) { return s_uv + (uint32_t)(k & 1) * L::P_BYTES; };
+  auto v_stage = [&](int k) {
+    return s_uv + (uint32_t)(2 + (k & 1)) * L::P_BYTES;
+  };
+  auto oth_stage = [&](int o) {
+    return s_oth + (uint32_t)(o & 1) * L::N_BYTES;
+  };
+  // a stage's cum of the own rows, of the other rows, dt of the key rows
+  auto small = [&](int k) { return s_small + (uint32_t)(k & 1) * 1280u; };
+
+  const int q = p.f.chunk, padded = p.f.row_tiles * kTile;
+  constexpr bool db = DB;
+  const int own0 = blk.own * kTile;
+  const int64_t row0 = (int64_t)blk.l * q;
+  const T* bp = static_cast<const T*>(p.f.b) + blk.bi * p.f.b_sb +
+                blk.g * p.f.b_sh + row0 * p.f.b_ss;
+  const T* cp = static_cast<const T*>(p.f.c) + blk.bi * p.f.c_sb +
+                blk.g * p.f.c_sh + row0 * p.f.c_ss;
+  const T* own_bc = db ? bp : cp;              // B_j or C_i
+  const T* oth_bc = db ? cp : bp;
+  const int64_t own_ss = db ? p.f.b_ss : p.f.c_ss;
+  const int64_t oth_ss = db ? p.f.c_ss : p.f.b_ss;
+  auto x_of = [&](int h) {
+    return static_cast<const T*>(p.f.x) + blk.bi * p.f.x_sb + h * p.f.x_sh +
+           row0 * p.f.x_ss;
+  };
+  auto dy_of = [&](int h) {
+    return static_cast<const T*>(p.dy) + blk.bi * p.dy_sb + h * p.dy_sh +
+           row0 * p.dy_ss;
+  };
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int r = 16 * warp + lane / 4;        // this thread's rows r, r + 8
+  const hopper::TileLoader<N, kThreads> lc(tid);
+  const hopper::TileLoader<P, kThreads> lp(tid);
+  const int nh = blk.h_hi - blk.h_lo;
+  const int steps = (blk.last - blk.first + 1) * nh;
+
+  // step k: other tile o = first + k / nh, head h_lo + k % nh
+  auto load_step = [&](int k) {
+    const int o = blk.first + k / nh, h = blk.h_lo + k % nh;
+    const int oth0 = o * kTile, j0 = db ? own0 : oth0;
+    const T* u = db ? x_of(h) : dy_of(h);
+    const T* v = db ? dy_of(h) : x_of(h);
+    lp.template load<kTile>(u_stage(k), u, db ? p.f.x_ss : p.dy_ss, own0, q);
+    lp.template load<kTile>(v_stage(k), v, db ? p.dy_ss : p.f.x_ss, oth0, q);
+    const uint8_t* w = work_of(p, blk.bi * p.f.heads + h, blk.l);
+    cp_bytes(small(k), w + 8 * own0, 8 * kTile);
+    cp_bytes(small(k) + 8 * kTile, w + 8 * oth0, 8 * kTile);
+    cp_bytes(small(k) + 16 * kTile, w + 8 * padded + 4 * j0, 4 * kTile);
+    if (k % nh == 0)
+      lc.template load<kTile>(oth_stage(o), oth_bc, oth_ss, oth0, q);
+  };
+
+  lc.template load<kTile>(s_own, own_bc, own_ss, own0, q);
+  load_step(0);
+  hopper::cp_async_commit();
+
+  float acc[N / 2], s[kTile / 2], ds[kTile / 2], d[kTile / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTile / 2; ++i) s[i] = ds[i] = d[i] = 0.f;
+  const int ra = own0 + r, rb = own0 + r + 8;     // own rows in the chunk
+  for (int k = 0; k < steps; ++k) {
+    hopper::cp_async_wait<0>();
+    hopper::fence_proxy_async();
+    __syncthreads();
+    if (k + 1 < steps) {
+      load_step(k + 1);
+      hopper::cp_async_commit();
+    }
+    const int o = blk.first + k / nh, h = blk.h_lo + k % nh;
+    const bool first_head = k % nh == 0, last_head = k % nh == nh - 1;
+    // the head's dcum rows so far, read now so that the load's latency
+    // hides behind the products (this thread wrote them itself)
+    double* rows = rows_of(p, db ? kMinus : kPlus, blk.bi * p.f.heads + h,
+                           row0);
+    const bool add = quad == 0 && o != blk.first;
+    const double prev_a = add && ra < q ? rows[ra] : 0.0;
+    const double prev_b = add && rb < q ? rows[rb] : 0.0;
+    hopper::fence_operands(d);
+    hopper::fence_operands(s);
+    hopper::wgmma_fence();
+    if (first_head) mma_nt<N, kTile>(s, s_own, oth_stage(o), false);
+    mma_nt<P, kTile>(d, u_stage(k), v_stage(k), false);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(d);
+    hopper::fence_operands(s);
+
+    // d[4m + e] is own row r + 8 (e / 2), other column 8 m + 2 quad + e % 2
+    const double* cum_own =
+        reinterpret_cast<const double*>(raw + small(k));
+    const double* cum_oth = cum_own + kTile;
+    const float* dtj = reinterpret_cast<const float*>(cum_oth + kTile);
+    const double co_a = cum_own[r], co_b = cum_own[r + 8];
+    const int oth0 = o * kTile;
+    double rs_a = 0.0, rs_b = 0.0;     // summed as the plain version sums
+#pragma unroll
+    for (int m = 0; m < kTile / 2; m += 4) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cc = 2 * (m + quad) + e, gt = oth0 + cc;
+        const double ct = cum_oth[cc];
+        // dB: own rows are keys j, columns queries i; dC the other way
+        const bool oka = db ? gt >= ra && gt < q : gt <= ra && ra < q;
+        const bool okb = db ? gt >= rb && gt < q : gt <= rb && rb < q;
+        const float dta = db ? dtj[r] : dtj[cc];
+        const float dtb = db ? dtj[r + 8] : dtj[cc];
+        const float la = expf(oka ? (float)(db ? ct - co_a : co_a - ct)
+                                  : -INFINITY);
+        const float lb = expf(okb ? (float)(db ? ct - co_b : co_b - ct)
+                                  : -INFINITY);
+        const float wa = d[m + e] * dta * la;
+        const float wb = d[m + 2 + e] * dtb * lb;
+        ds[m + e] += wa;
+        ds[m + 2 + e] += wb;
+        rs_a += (double)(wa * s[m + e]);
+        rs_b += (double)(wb * s[m + 2 + e]);
+      }
+    }
+    rs_a = quad_sum(rs_a);
+    rs_b = quad_sum(rs_b);
+    if (quad == 0) {
+      if (ra < q) rows[ra] = prev_a + rs_a;
+      if (rb < q) rows[rb] = prev_b + rs_b;
+    }
+    if (last_head) {
+      uint32_t vh[16], vl[16];
+#pragma unroll
+      for (int i = 0; i < kTile / 2; i += 2)
+        split(ds[i], ds[i + 1], vh[i / 2], vl[i / 2]);
+      hopper::fence_operands(acc);
+      hopper::wgmma_fence();
+      mma_rn<N, kTile>(acc, vh, oth_stage(o));
+      mma_rn<N, kTile>(acc, vl, oth_stage(o));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+      hopper::fence_operands(vh);
+      hopper::fence_operands(vl);
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) ds[i] = 0.f;
+    }
+  }
+
+  if (db) {
+    // the states' term, head by head: (x_h dt_h w_h)[j, :] dstates_h with
+    // both factors in two bf16 parts (the lo x lo product left out)
+    const uint32_t s_hi = s_uv, s_lo = s_uv + L::DST_BYTES;
+    for (int h = blk.h_lo; h < blk.h_hi; ++h) {
+      __syncthreads();            // the tiles are free
+      const float* dst = p.dst + blk.bi * p.dst_sb + h * p.dst_sh +
+                         blk.l * p.dst_sl;
+      store_dst<P, N>(raw, s_hi, dst, 0);
+      store_dst<P, N>(raw, s_lo, dst, 1);
+      hopper::fence_proxy_async();
+      const uint8_t* w = work_of(p, blk.bi * p.f.heads + h, blk.l);
+      const double* cumh = reinterpret_cast<const double*>(w);
+      const float* dth = reinterpret_cast<const float*>(w + 8 * padded);
+      const double lastc = cumh[q - 1];
+      const float sa = ra < q ? dth[ra] * expf((float)(lastc - cumh[ra]))
+                              : 0.f;
+      const float sb = rb < q ? dth[rb] * expf((float)(lastc - cumh[rb]))
+                              : 0.f;
+      const T* xh = x_of(h);
+      uint32_t ah[P / 4], al[P / 4];
+#pragma unroll
+      for (int kk = 0; kk < P / 16; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int row = jj % 2 ? rb : ra;
+          const float sc = jj % 2 ? sb : sa;
+          const float2 v = pair_at(xh, p.f.x_ss, row,
+                                   16 * kk + 8 * (jj / 2) + 2 * quad, q);
+          split(v.x * sc, v.y * sc, ah[4 * kk + jj], al[4 * kk + jj]);
+        }
+      }
+      __syncthreads();
+      hopper::fence_operands(acc);
+      hopper::wgmma_fence();
+      mma_rn<N, P>(acc, ah, s_hi);
+      mma_rn<N, P>(acc, al, s_hi);
+      mma_rn<N, P>(acc, ah, s_lo);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+      hopper::fence_operands(ah);
+      hopper::fence_operands(al);
+    }
+  }
+
+  // acc[4m + e] is own row r + 8 (e / 2), column 8 m + 2 quad + e % 2
+  float* out = part_of(p, blk.kind, blk.split, blk.bi, blk.g) + row0 * N;
+#pragma unroll
+  for (int m = 0; m < N / 2; m += 4) {
+    const int col = 8 * (m / 4) + 2 * quad;
+    if (ra < q)
+      *reinterpret_cast<float2*>(out + (int64_t)ra * N + col) =
+          make_float2(acc[m], acc[m + 1]);
+    if (rb < q)
+      *reinterpret_cast<float2*>(out + (int64_t)rb * N + col) =
+          make_float2(acc[m + 2], acc[m + 3]);
+  }
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_ds_bf16(const BwdParams p) {
+  const DsBlock blk(p);
+  if (blk.kind == 0)
+    ds_block<P, N, true>(p, blk);
+  else
+    ds_block<P, N, false>(p, blk);
+}
+
+template <int P, int N>
+cudaError_t launch_bwd(const BwdParams& p, int bh, int chunks,
+                       cudaStream_t stream) {
+  using L = BwdTiles<P, N>;
+  static bool done_dx[64] = {}, done_ds[64] = {};
+  cudaError_t err = allow_smem(ssd_bwd_dx_bf16<P, N>,
+                               L::dx_smem(kMaxChunk), done_dx);
+  if (err == cudaSuccess)
+    err = allow_smem(ssd_bwd_ds_bf16<P, N>, L::ds_smem(), done_ds);
+  if (err != cudaSuccess) return err;
+  const int t = p.f.row_tiles;
+  ssd_bwd_ds_bf16<P, N><<<dim3(p.batch * p.groups, chunks, 2 * t * p.splits),
+                          kThreads, L::ds_smem(), stream>>>(p);
+  ssd_bwd_dx_bf16<P, N><<<dim3(bh, chunks, t), kThreads,
+                          L::dx_smem(t * kTile), stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace bf16
+
+// ---------------------------------------------------------------------------
+// fp32 backward: CUDA cores
+
+namespace f32 {
+
+constexpr int kSlab = 16;          // dstates rows (dS) or columns (dx) a pass
+
+// half a warp's 16 threads (one row of the 16 x 16 grid) summed
+template <typename V>
+__device__ __forceinline__ V row_sum(V v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// cum (double) and dt of rows [0, padded) from the work buffer
+__device__ __forceinline__ void load_work(double* cum, float* sdt,
+                                          const uint8_t* w, int padded) {
+  for (int j = threadIdx.x; j < padded; j += kThreads) {
+    cum[j] = reinterpret_cast<const double*>(w)[j];
+    sdt[j] = reinterpret_cast<const float*>(w + 8 * (size_t)padded)[j];
+  }
+}
+
+template <int P, int N>
+constexpr size_t dx_smem(int padded) {
+  return 12 * (size_t)padded +
+         sizeof(float) * (size_t)(2 * kTile * (N + 1) + kTile * (P + 1) +
+                                  kTile * (kTile + 1) + P * (kSlab + 1));
+}
+
+// dx blocks, as the bf16 ones: thread (ty, tx) owns rows j0 + ty + 16 a of
+// the key tile and columns tx + 16 k of P (or query columns tx + 16 k)
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_dx_f32(const BwdParams p) {
+  constexpr int LN = N + 1, LP = P + 1, LS = kTile + 1, CP = P / 16;
+  extern __shared__ double smem_d[];
+  const int padded = p.f.row_tiles * kTile;
+  double* cum = smem_d;                                   // [padded]
+  float* sdt = reinterpret_cast<float*>(cum + padded);    // [padded]
+  float* s_b = sdt + padded;                              // [kTile][LN]
+  float* s_c = s_b + kTile * LN;                          // [kTile][LN]
+  float* s_dy = s_c + kTile * LN;                         // [kTile][LP]
+  float* s_v = s_dy + kTile * LP;                         // [kTile][LS]
+  float* s_st = s_v + kTile * LS;                         // [P][kSlab + 1]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q = p.f.chunk, bh = blockIdx.x, l = blockIdx.y;
+  const int bi = bh / p.f.heads, hi = bh % p.f.heads;
+  const int g = hi / (p.f.heads / p.groups);
+  const int j0 = blockIdx.z * kTile;
+  const int64_t row0 = (int64_t)l * q;
+  const float* x = static_cast<const float*>(p.f.x) + bi * p.f.x_sb +
+                   hi * p.f.x_sh + row0 * p.f.x_ss;
+  const float* dy = static_cast<const float*>(p.dy) + bi * p.dy_sb +
+                    hi * p.dy_sh + row0 * p.dy_ss;
+  const float* bp = static_cast<const float*>(p.f.b) + bi * p.f.b_sb +
+                    g * p.f.b_sh + row0 * p.f.b_ss;
+  const float* cp = static_cast<const float*>(p.f.c) + bi * p.f.c_sb +
+                    g * p.f.c_sh + row0 * p.f.c_ss;
+  const float* dst = p.dst + bi * p.dst_sb + hi * p.dst_sh + l * p.dst_sl;
+
+  load_work(cum, sdt, work_of(p, bh, l), padded);
+  load_tile<N>(s_b, bp, p.f.b_ss, j0, min(kTile, q - j0), nullptr);
+  // t = B_j dstates^T, kSlab columns of dstates at a time
+  float t[4][CP];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int k = 0; k < CP; ++k) t[a][k] = 0.f;
+  for (int n0 = 0; n0 < N; n0 += kSlab) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < P * kSlab; i += kThreads)
+      s_st[(i / kSlab) * (kSlab + 1) + i % kSlab] =
+          dst[(i / kSlab) * N + n0 + i % kSlab];
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < kSlab; ++n) {
+      float br[4], sr[CP];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) br[a] = s_b[(ty + 16 * a) * LN + n0 + n];
+#pragma unroll
+      for (int k = 0; k < CP; ++k) sr[k] = s_st[(tx + 16 * k) * (kSlab + 1) + n];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < CP; ++k) t[a][k] = fmaf(br[a], sr[k], t[a][k]);
+    }
+  }
+  // dxdt starts as w (B_j dstates^T); g = w dt sum_p x t
+  const double last = cum[q - 1];
+  float acc[4][CP];
+  double* rows_dec = rows_of(p, kDecay, bh, row0);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = j0 + ty + 16 * a;
+    const bool in = j < q;
+    const float w = in ? expf((float)(last - cum[j])) : 0.f;
+    float gp = 0.f;
+#pragma unroll
+    for (int k = 0; k < CP; ++k) {
+      gp += (in ? x[j * p.f.x_ss + tx + 16 * k] : 0.f) * t[a][k];
+      acc[a][k] = w * t[a][k];
+    }
+    gp = row_sum(gp);
+    if (tx == 0 && in) rows_dec[j] = w * sdt[j] * gp;
+  }
+  for (int i0 = j0; i0 < q; i0 += kTile) {      // query tiles from j's on
+    const int rows = min(kTile, q - i0);
+    __syncthreads();
+    load_tile<N>(s_c, cp, p.f.c_ss, i0, rows, nullptr);
+    load_tile<P>(s_dy, dy, p.dy_ss, i0, rows, nullptr);
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[a][k] = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < N; ++n) {
+      float br[4], cr[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) br[a] = s_b[(ty + 16 * a) * LN + n];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cr[k] = s_c[(tx + 16 * k) * LN + n];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[a][k] = fmaf(br[a], cr[k], s[a][k]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = j0 + ty + 16 * a;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + tx + 16 * k;
+        const bool ok = i >= j && i < q;
+        s_v[(ty + 16 * a) * LS + tx + 16 * k] =
+            s[a][k] * expf(ok ? (float)(cum[i] - cum[j]) : -INFINITY);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < kTile; ++i) {
+      float vr[4], dr[CP];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) vr[a] = s_v[(ty + 16 * a) * LS + i];
+#pragma unroll
+      for (int k = 0; k < CP; ++k) dr[k] = s_dy[i * LP + tx + 16 * k];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < CP; ++k) acc[a][k] = fmaf(vr[a], dr[k], acc[a][k]);
+    }
+  }
+  float* dxp = static_cast<float*>(p.dx) + bi * p.dx_sb + hi * p.dx_sh +
+               row0 * p.dx_ss;
+  double* rows_x = rows_of(p, kDdtX, bh, row0);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = j0 + ty + 16 * a;
+    const bool in = j < q;
+    float e = 0.f;
+#pragma unroll
+    for (int k = 0; k < CP; ++k) {
+      const int col = tx + 16 * k;
+      if (in) {
+        e += acc[a][k] * x[j * p.f.x_ss + col];
+        dxp[j * p.dx_ss + col] = acc[a][k] * sdt[j];
+      }
+    }
+    e = row_sum(e);
+    if (tx == 0 && in) rows_x[j] = e;
+  }
+}
+
+template <int P, int N>
+constexpr size_t ds_smem() {
+  return sizeof(double) * 2 * kTile +
+         sizeof(float) * (size_t)(kTile + 2 * kTile * (N + 1) +
+                                  2 * kTile * (P + 1) + kTile * (kTile + 1) +
+                                  kSlab * (N + 1));
+}
+
+// dS blocks, as the bf16 ones (see DsBlock)
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_ds_f32(const BwdParams p) {
+  constexpr int LN = N + 1, LP = P + 1, LS = kTile + 1, CN = N / 16;
+  extern __shared__ double smem_d[];
+  double* cum_own = smem_d;                               // [kTile]
+  double* cum_oth = cum_own + kTile;                      // [kTile]
+  float* dtj = reinterpret_cast<float*>(cum_oth + kTile); // [kTile]
+  float* s_own = dtj + kTile;                             // [kTile][LN]
+  float* s_oth = s_own + kTile * LN;                      // [kTile][LN]
+  float* s_u = s_oth + kTile * LN;                        // [kTile][LP]
+  float* s_v = s_u + kTile * LP;                          // [kTile][LP]
+  float* s_ds = s_v + kTile * LP;                         // [kTile][LS]
+  float* s_st = s_ds + kTile * LS;                        // [kSlab][LN]
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const DsBlock blk(p);
+  const int q = p.f.chunk, padded = p.f.row_tiles * kTile;
+  const bool db = blk.kind == 0;
+  const int own0 = blk.own * kTile;
+  const int64_t row0 = (int64_t)blk.l * q;
+  const float* bp = static_cast<const float*>(p.f.b) + blk.bi * p.f.b_sb +
+                    blk.g * p.f.b_sh + row0 * p.f.b_ss;
+  const float* cp = static_cast<const float*>(p.f.c) + blk.bi * p.f.c_sb +
+                    blk.g * p.f.c_sh + row0 * p.f.c_ss;
+  auto x_of = [&](int h) {
+    return static_cast<const float*>(p.f.x) + blk.bi * p.f.x_sb +
+           h * p.f.x_sh + row0 * p.f.x_ss;
+  };
+  auto dy_of = [&](int h) {
+    return static_cast<const float*>(p.dy) + blk.bi * p.dy_sb +
+           h * p.dy_sh + row0 * p.dy_ss;
+  };
+  const int own_rows = min(kTile, q - own0);
+  load_tile<N>(s_own, db ? bp : cp, db ? p.f.b_ss : p.f.c_ss, own0, own_rows,
+               nullptr);
+  float acc[4][CN];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int k = 0; k < CN; ++k) acc[a][k] = 0.f;
+
+  for (int o = blk.first; o <= blk.last; ++o) {
+    const int oth0 = o * kTile, oth_rows = min(kTile, q - oth0);
+    const int j0 = db ? own0 : oth0;
+    __syncthreads();
+    load_tile<N>(s_oth, db ? cp : bp, db ? p.f.c_ss : p.f.b_ss, oth0,
+                 oth_rows, nullptr);
+    __syncthreads();
+    float s[4][4], ds[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[a][k] = ds[a][k] = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < N; ++n) {
+      float ur[4], vr[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ur[a] = s_own[(ty + 16 * a) * LN + n];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) vr[k] = s_oth[(tx + 16 * k) * LN + n];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[a][k] = fmaf(ur[a], vr[k], s[a][k]);
+    }
+    for (int h = blk.h_lo; h < blk.h_hi; ++h) {
+      __syncthreads();
+      load_tile<P>(s_u, db ? x_of(h) : dy_of(h), db ? p.f.x_ss : p.dy_ss,
+                   own0, own_rows, nullptr);
+      load_tile<P>(s_v, db ? dy_of(h) : x_of(h), db ? p.dy_ss : p.f.x_ss,
+                   oth0, oth_rows, nullptr);
+      const uint8_t* w = work_of(p, blk.bi * p.f.heads + h, blk.l);
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        cum_own[i] = reinterpret_cast<const double*>(w)[own0 + i];
+        cum_oth[i] = reinterpret_cast<const double*>(w)[oth0 + i];
+        dtj[i] = reinterpret_cast<const float*>(w + 8 * (size_t)padded)[j0 + i];
+      }
+      __syncthreads();
+      float d[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) d[a][k] = 0.f;
+#pragma unroll 4
+      for (int e = 0; e < P; ++e) {
+        float ur[4], vr[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) ur[a] = s_u[(ty + 16 * a) * LP + e];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) vr[k] = s_v[(tx + 16 * k) * LP + e];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) d[a][k] = fmaf(ur[a], vr[k], d[a][k]);
+      }
+      double* rows = rows_of(p, db ? kMinus : kPlus,
+                             blk.bi * p.f.heads + h, row0);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int ro = ty + 16 * a, go = own0 + ro;
+        double rs = 0.0;                 // summed as the plain version sums
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int co = tx + 16 * k, gt = oth0 + co;
+          const bool ok = db ? gt >= go && gt < q : gt <= go && go < q;
+          const double diff = db ? cum_oth[co] - cum_own[ro]
+                                 : cum_own[ro] - cum_oth[co];
+          const float w = d[a][k] * dtj[db ? ro : co] *
+                          expf(ok ? (float)diff : -INFINITY);
+          ds[a][k] += w;
+          rs += (double)(w * s[a][k]);
+        }
+        rs = row_sum(rs);
+        if (tx == 0 && go < q)
+          rows[go] = (o == blk.first ? 0.0 : rows[go]) + rs;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        s_ds[(ty + 16 * a) * LS + tx + 16 * k] = ds[a][k];
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < kTile; ++i) {
+      float dr[4], br[CN];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dr[a] = s_ds[(ty + 16 * a) * LS + i];
+#pragma unroll
+      for (int k = 0; k < CN; ++k) br[k] = s_oth[i * LN + tx + 16 * k];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int k = 0; k < CN; ++k) acc[a][k] = fmaf(dr[a], br[k], acc[a][k]);
+    }
+  }
+
+  if (db) {
+    // the states' term: (x_h dt_h w_h)[j, :] dstates_h, kSlab rows of
+    // dstates at a time
+    for (int h = blk.h_lo; h < blk.h_hi; ++h) {
+      const uint8_t* w = work_of(p, blk.bi * p.f.heads + h, blk.l);
+      const double* cumh = reinterpret_cast<const double*>(w);
+      const float* dth = reinterpret_cast<const float*>(w + 8 * (size_t)padded);
+      const double lastc = cumh[q - 1];
+      __syncthreads();
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        const int j = own0 + i;
+        dtj[i] = j < q ? dth[j] * expf((float)(lastc - cumh[j])) : 0.f;
+      }
+      __syncthreads();
+      load_tile<P>(s_u, x_of(h), p.f.x_ss, own0, own_rows, dtj - own0);
+      const float* dst = p.dst + blk.bi * p.dst_sb + h * p.dst_sh +
+                         blk.l * p.dst_sl;
+      for (int e0 = 0; e0 < P; e0 += kSlab) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < kSlab * N; i += kThreads)
+          s_st[(i / N) * LN + i % N] = dst[(e0 + i / N) * N + i % N];
+        __syncthreads();
+#pragma unroll
+        for (int e = 0; e < kSlab; ++e) {
+          float ur[4], sr[CN];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) ur[a] = s_u[(ty + 16 * a) * LP + e0 + e];
+#pragma unroll
+          for (int k = 0; k < CN; ++k) sr[k] = s_st[e * LN + tx + 16 * k];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int k = 0; k < CN; ++k)
+              acc[a][k] = fmaf(ur[a], sr[k], acc[a][k]);
+        }
+      }
+    }
+  }
+
+  float* out = part_of(p, blk.kind, blk.split, blk.bi, blk.g) + row0 * N;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int go = own0 + ty + 16 * a;
+    if (go >= q) continue;
+#pragma unroll
+    for (int k = 0; k < CN; ++k) out[(int64_t)go * N + tx + 16 * k] = acc[a][k];
+  }
+}
+
+template <int P, int N>
+cudaError_t launch_bwd(const BwdParams& p, int bh, int chunks,
+                       cudaStream_t stream) {
+  static bool done_dx[64] = {}, done_ds[64] = {};
+  cudaError_t err = allow_smem(ssd_bwd_dx_f32<P, N>,
+                               dx_smem<P, N>(kMaxChunk), done_dx);
+  if (err == cudaSuccess)
+    err = allow_smem(ssd_bwd_ds_f32<P, N>, ds_smem<P, N>(), done_ds);
+  if (err != cudaSuccess) return err;
+  const int t = p.f.row_tiles;
+  ssd_bwd_ds_f32<P, N><<<dim3(p.batch * p.groups, chunks, 2 * t * p.splits),
+                         kThreads, ds_smem<P, N>(), stream>>>(p);
+  ssd_bwd_dx_f32<P, N><<<dim3(bh, chunks, t), kThreads,
+                         dx_smem<P, N>(t * kTile), stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
+template <int P, int N>
+cudaError_t launch_bwd(const BwdParams& p, int dtype, cudaStream_t s) {
+  const int bh = p.batch * p.f.heads, chunks = p.seqlen / p.f.chunk;
+  // cum, as the forward sums it, into the work buffer
+  bf16::ssd_chunk_cum<<<dim3(bh, chunks), kRuns, sizeof(float) * p.f.chunk,
+                        s>>>(p.f);
+  cudaError_t err = dtype == 1 ? bf16::launch_bwd<P, N>(p, bh, chunks, s)
+                               : f32::launch_bwd<P, N>(p, bh, chunks, s);
+  if (err != cudaSuccess) return err;
+  ssd_bwd_finish<<<dim3(bh, chunks), kRuns, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t dispatch_bwd_n(const BwdParams& p, int n, int dtype,
+                           cudaStream_t s) {
+  switch (n) {
+    case 16: return launch_bwd<P, 16>(p, dtype, s);
+    case 32: return launch_bwd<P, 32>(p, dtype, s);
+    case 64: return launch_bwd<P, 64>(p, dtype, s);
+    case 128: return launch_bwd<P, 128>(p, dtype, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_bwd(const BwdParams& p, int pd, int n, int dtype,
+                         cudaStream_t s) {
+  switch (pd) {
+    case 16: return dispatch_bwd_n<16>(p, n, dtype, s);
+    case 32: return dispatch_bwd_n<32>(p, n, dtype, s);
+    case 64: return dispatch_bwd_n<64>(p, n, dtype, s);
+    case 128: return dispatch_bwd_n<128>(p, n, dtype, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -806,6 +1981,72 @@ int repro_ssd_chunk_fwd(
   prm.st_sb = st_sb; prm.st_sh = st_sh; prm.st_sl = st_sl;
   return (int)dispatch(prm, batch * heads, seqlen / chunk, p, n, dtype,
                        static_cast<cudaStream_t>(stream));
+}
+
+// dtype of x, b, c, dy and dx: 0 = float32, 1 = bfloat16; dt, a, dstates
+// and ddt are float32.  b and c are [B, G, S, N] with G = 1 or heads (group
+// stride b_sg, c_sg); splits in [1, heads / groups]; dstates' [P, N] blocks
+// are contiguous and start on 16 bytes.  Scratch: da [B, H, S / chunk] and
+// part [2, splits, B, G, S, N] float32, rows [4, B, H, S] float64, and
+// `work`, 16-byte aligned, 12 * ceil(chunk / 64) * 64 bytes per (batch,
+// head, chunk).  Otherwise as repro_ssd_chunk_fwd.  Writes dx, ddt, da,
+// part (each split's dB, then its dC); the caller adds the splits.  Returns
+// the CUDA error of the launches (0 on success).
+int repro_ssd_chunk_bwd(
+    const void* x, const void* dt, const void* a, const void* b,
+    const void* c, const void* dy, const void* dstates, void* dx, void* ddt,
+    void* da, void* part, void* rows, void* work, int dtype, int batch,
+    int heads, int groups, int seqlen, int chunk, int p, int n, int splits,
+    int64_t x_sb, int64_t x_sh, int64_t x_ss,
+    int64_t dt_sb, int64_t dt_sh, int64_t dt_ss,
+    int64_t a_sb, int64_t a_sh,
+    int64_t b_sb, int64_t b_sg, int64_t b_ss,
+    int64_t c_sb, int64_t c_sg, int64_t c_ss,
+    int64_t dy_sb, int64_t dy_sh, int64_t dy_ss,
+    int64_t dst_sb, int64_t dst_sh, int64_t dst_sl,
+    int64_t dx_sb, int64_t dx_sh, int64_t dx_ss,
+    int64_t ddt_sb, int64_t ddt_sh, int64_t ddt_ss, void* stream) {
+  cudaGetLastError();  // clear an error left by an earlier call
+  if (batch <= 0 || heads <= 0 || chunk <= 0 || chunk > kMaxChunk ||
+      seqlen <= 0 || seqlen % chunk != 0 || seqlen / chunk > 65535 ||
+      (groups != 1 && groups != heads) || splits < 1 ||
+      splits > heads / groups || (int64_t)batch * heads > 65535 ||
+      work == nullptr || reinterpret_cast<uintptr_t>(work) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(dstates) % 16 != 0 || dst_sb % 4 != 0 ||
+      dst_sh % 4 != 0 || dst_sl % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && !(rows_aligned(x, x_sb, x_sh, x_ss) &&
+                      rows_aligned(b, b_sb, b_sg, b_ss) &&
+                      rows_aligned(c, c_sb, c_sg, c_ss) &&
+                      rows_aligned(dy, dy_sb, dy_sh, dy_ss) &&
+                      rows_aligned(dx, dx_sb, dx_sh, dx_ss)))
+    return (int)cudaErrorMisalignedAddress;
+  BwdParams prm;
+  prm.f.x = x; prm.f.dt = static_cast<const float*>(dt);
+  prm.f.a = static_cast<const float*>(a); prm.f.b = b; prm.f.c = c;
+  prm.f.y = nullptr; prm.f.st = nullptr; prm.f.work = work;
+  prm.f.heads = heads; prm.f.chunk = chunk;
+  prm.f.row_tiles = (chunk + kTile - 1) / kTile;
+  prm.f.x_sb = x_sb; prm.f.x_sh = x_sh; prm.f.x_ss = x_ss;
+  prm.f.dt_sb = dt_sb; prm.f.dt_sh = dt_sh; prm.f.dt_ss = dt_ss;
+  prm.f.a_sb = a_sb; prm.f.a_sh = a_sh;
+  prm.f.b_sb = b_sb; prm.f.b_sh = b_sg; prm.f.b_ss = b_ss;
+  prm.f.c_sb = c_sb; prm.f.c_sh = c_sg; prm.f.c_ss = c_ss;
+  prm.f.y_sb = prm.f.y_sh = prm.f.y_ss = 0;
+  prm.f.st_sb = prm.f.st_sh = prm.f.st_sl = 0;
+  prm.dy = dy; prm.dst = static_cast<const float*>(dstates); prm.dx = dx;
+  prm.ddt = static_cast<float*>(ddt); prm.da = static_cast<float*>(da);
+  prm.part = static_cast<float*>(part);
+  prm.rows = static_cast<double*>(rows);
+  prm.batch = batch; prm.groups = groups; prm.seqlen = seqlen;
+  prm.splits = splits; prm.ndim = n;
+  prm.dy_sb = dy_sb; prm.dy_sh = dy_sh; prm.dy_ss = dy_ss;
+  prm.dst_sb = dst_sb; prm.dst_sh = dst_sh; prm.dst_sl = dst_sl;
+  prm.dx_sb = dx_sb; prm.dx_sh = dx_sh; prm.dx_ss = dx_ss;
+  prm.ddt_sb = ddt_sb; prm.ddt_sh = ddt_sh; prm.ddt_ss = ddt_ss;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_bwd(prm, p, n, dtype,
+                           static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -95,6 +95,43 @@ def ssd_chunk_intra_reference(x: torch.Tensor, dt: torch.Tensor,
     return y[:, 0], states[:, 0]
 
 
+def work_dtype(x: torch.Tensor) -> torch.dtype:
+    """The SSD block's arithmetic type: float32, or float64 for float64
+    inputs (the CPU tests' oracle)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _ssd_chunk_terms(x, dt, a, b, c, chunk):
+    """The plain SSD block's operands and intermediates, shared by its
+    forward and its backward: (xf [B,H,L,Q,P], dtf, af [B,H], bf, cf
+    [B,G,L,Q,N], cum (float64) [B,H,L,Q], ll [B,H,L,Q,Q], scores
+    [B,G,L,Q,Q], xdt, decay [B,H,L,Q]) in the work dtype."""
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} must divide chunk {chunk}")
+    l = s // chunk
+    ft = work_dtype(x)
+    xf = x.to(ft).reshape(bs, h, l, chunk, p)
+    dtf = dt.to(ft).reshape(bs, h, l, chunk)
+    af = a.to(ft).expand(bs, h)
+    bf = b.to(ft).reshape(bs, g, l, chunk, n)
+    cf = c.to(ft).reshape(bs, g, l, chunk, n)
+    da = dtf * af[..., None, None]                          # [B,H,L,Q]
+    cum = torch.cumsum(da, dim=-1, dtype=torch.float64)
+    diff = (cum[..., :, None] - cum[..., None, :]).to(ft)
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                 device=x.device))
+    # masked before the exp: the positive differences above the diagonal
+    # may overflow to inf, and under autograd the backward of a select
+    # after the exp would multiply its zero gradient by that inf
+    ll = torch.exp(torch.where(mask, diff, -torch.inf))
+    xdt = xf * dtf[..., None]                               # [B,H,L,Q,P]
+    scores = cf @ bf.transpose(-1, -2)                      # [B,G,L,Q,Q]
+    decay = torch.exp((cum[..., -1:] - cum).to(ft))         # [B,H,L,Q]
+    return xf, dtf, af, bf, cf, cum, ll, scores, xdt, decay
+
+
 def ssd_chunk_intra_heads_reference(x: torch.Tensor, dt: torch.Tensor,
                                     a: torch.Tensor, b: torch.Tensor,
                                     c: torch.Tensor, chunk: int
@@ -105,28 +142,66 @@ def ssd_chunk_intra_heads_reference(x: torch.Tensor, dt: torch.Tensor,
     (y [B,H,S,P], states [B,H,L,P,N] f32).  With G = 1 (every head reads
     the same b, c, as Mamba2's do) C.B^T is computed once per batch row
     and chunk and shared by the heads, as the reference model computes
-    it."""
+    it.  float64 inputs are computed in float64 (states too)."""
     bs, h, s, p = x.shape
-    g, n = b.shape[1], b.shape[-1]
-    if s % chunk:
-        raise ValueError(f"seq {s} must divide chunk {chunk}")
-    l = s // chunk
-    xf = x.float().reshape(bs, h, l, chunk, p)
-    dtf = dt.float().reshape(bs, h, l, chunk)
-    bf = b.float().reshape(bs, g, l, chunk, n)
-    cf = c.float().reshape(bs, g, l, chunk, n)
-    da = dtf * a.float().expand(bs, h)[..., None, None]     # [B,H,L,Q]
-    cum = torch.cumsum(da, dim=-1, dtype=torch.float64)
-    diff = (cum[..., :, None] - cum[..., None, :]).float()
-    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
-                                 device=x.device))
-    # masked before the exp: the positive differences above the diagonal
-    # may overflow to inf, and under autograd the backward of a select
-    # after the exp would multiply its zero gradient by that inf
-    ll = torch.exp(torch.where(mask, diff, -torch.inf))
-    xdt = xf * dtf[..., None]                               # [B,H,L,Q,P]
-    scores = cf @ bf.transpose(-1, -2)                      # [B,G,L,Q,Q]
+    _, _, _, bf, _, _, ll, scores, xdt, decay = _ssd_chunk_terms(
+        x, dt, a, b, c, chunk)
     y = (scores * ll) @ xdt
-    decay = torch.exp((cum[..., -1:] - cum).float())        # [B,H,L,Q]
     states = xdt.transpose(-1, -2) @ (bf * decay[..., None])
     return y.reshape(bs, h, s, p).to(x.dtype), states
+
+
+def ssd_chunk_intra_bwd_reference(x: torch.Tensor, dt: torch.Tensor,
+                                  a: torch.Tensor, b: torch.Tensor,
+                                  c: torch.Tensor, dy: torch.Tensor,
+                                  dstates: torch.Tensor, chunk: int
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of `ssd_chunk_intra_heads_reference`, written out:
+    the oracle the backward kernel (`ssd_scan.ssd_chunk_intra_bwd_heads`)
+    is held to, and its CPU path.  dy [B,H,S,P] and dstates [B,H,L,P,N]
+    are the gradients of y and the states.  Returns (dx [B,H,S,P] in x's
+    dtype, ddt [B,H,S], da [B,H], db, dc [B,G,S,N] in b's dtype); ddt and
+    da in the work dtype (float32, float64 for float64 inputs).
+
+    Per chunk, with M = S o L (S = C B^T shared by a group's heads), xdt =
+    x dt and w = exp(cum[Q-1] - cum) the decay of the states:
+
+        dM    = dy xdt^T                 dxdt = M^T dy + (B o w) dstates^T
+        dS    = sum_h dM o L             dC = dS B,  dB = dS^T C
+        dB   += sum_h w o (xdt dstates)
+        dcum  = rowsum(dM o M) - colsum(dM o M) - g,  g = w o rowsum(B o
+                (xdt dstates)), and dcum[Q-1] += sum(g)
+        d(dt a) = reverse cumsum of dcum, summed in float64 as autograd
+                sums the float64 cumsum's gradient
+
+    dx = dxdt dt, ddt = rowsum(dxdt o x) + d(dt a) a, da = sum d(dt a) dt."""
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    l = s // chunk
+    xf, dtf, af, bf, cf, _, ll, scores, xdt, decay = _ssd_chunk_terms(
+        x, dt, a, b, c, chunk)
+    ft = xf.dtype
+    dyf = dy.to(ft).reshape(bs, h, l, chunk, p)
+    dst = dstates.to(ft)                                    # [B,H,L,P,N]
+
+    def by_group(t):                    # sum a [B,H,...] over each group
+        return t.reshape(bs, g, h // g, *t.shape[2:]).sum(2)
+
+    m = scores * ll                                         # [B,H,L,Q,Q]
+    dm = dyf @ xdt.transpose(-1, -2)
+    dxdt = m.transpose(-1, -2) @ dyf + (bf * decay[..., None]) @ \
+        dst.transpose(-1, -2)
+    xst = xdt @ dst                                         # [B,H,L,Q,N]
+    ds = by_group(dm * ll)                                  # [B,G,L,Q,Q]
+    dc = ds @ bf
+    db = ds.transpose(-1, -2) @ cf + by_group(xst * decay[..., None])
+    dp = (dm * m).double()
+    gdec = ((xst * bf).sum(-1) * decay).double()            # [B,H,L,Q]
+    dcum = dp.sum(-1) - dp.sum(-2) - gdec
+    dcum[..., -1] += gdec.sum(-1)
+    dda = dcum.flip(-1).cumsum(-1).flip(-1).to(ft)
+    ddt = (dxdt * xf).sum(-1) + dda * af[..., None, None]
+    da = (dda * dtf).sum((-1, -2))
+    return ((dxdt * dtf[..., None]).reshape(bs, h, s, p).to(x.dtype),
+            ddt.reshape(bs, h, s), da, db.reshape(bs, g, s, n).to(b.dtype),
+            dc.reshape(bs, g, s, n).to(b.dtype))

@@ -1,9 +1,9 @@
-"""Mamba2 SSD intra-chunk block: the wrapper around the Hopper kernel.
+"""Mamba2 SSD intra-chunk block: the wrappers around the Hopper kernels.
 
-The kernel, `csrc/ssd_chunk.cu`, replaces the Pallas TPU kernel
-`_ssd_chunk_kernel` / `ssd_chunk_intra` in src/repro/kernels/ssd_scan.py;
-its source says what bounds it on an H100 and how the design answers that.
-Two entry points share it:
+The forward kernel, `csrc/ssd_chunk.cu`'s `repro_ssd_chunk_fwd`, replaces
+the Pallas TPU kernel `_ssd_chunk_kernel` / `ssd_chunk_intra` in
+src/repro/kernels/ssd_scan.py; its source says what bounds it on an H100
+and how the design answers that.  Two entry points share it:
 
 * `ssd_chunk_intra(x, dt, a, b, c, chunk)`: the Pallas kernel's layout,
   x [BH,S,P], dt [BH,S], a [BH], b, c [BH,S,N];
@@ -12,25 +12,33 @@ Two entry points share it:
   [B,S,H,P] activations and b, c shared by every head are never copied;
   y and the states may be written into views given as `y` and `states`.
 
-On CUDA tensors each launches the kernel (building it at first use) or
-raises; on CPU tensors each computes its plain version in `ref.py`.
-bfloat16 runs on the tensor cores (wgmma), float32 on the CUDA cores;
-`launch_args` is the launch plan of both.  `KERNEL.launches` counts
-launches.  There is no backward kernel, as the Pallas kernel has none:
-inputs that require grad raise, so no gradient is silently lost; the
-model's `ssd_chunked` takes the plain version under autograd on every
-device instead, as `attend` does for attention.
+The backward kernel, `repro_ssd_chunk_bwd` in the same source, has no
+Pallas counterpart (the Pallas kernel has no backward): it was added so
+that training runs the block on the card.
+`ssd_chunk_intra_bwd_heads(x, dt, a, b, c, dy, dstates, chunk)` takes the
+heads layout and returns the gradients of x, dt, a, b and c.
+`ops.ssd_chunk_intra_bshp` joins the two under autograd.
+
+On CUDA tensors each wrapper launches its kernel (building the library at
+first use) or raises; on CPU tensors each computes its plain version in
+`ref.py`, which also takes float64 (the CPU tests' gradcheck).  bfloat16
+runs on the tensor cores (wgmma), float32 on the CUDA cores;
+`launch_args` and `bwd_launch_args` are the launch plans.
+`KERNEL.launches` and `BWD_KERNEL.launches` count launches.  The forward
+wrapper refuses inputs that require grad, so no gradient is silently lost
+by a direct call: autograd reaches the kernels through `ops`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import build
-from .ref import ssd_chunk_intra_heads_reference
+from .ref import (ssd_chunk_intra_bwd_reference,
+                  ssd_chunk_intra_heads_reference, work_dtype)
 
 DIMS = (16, 32, 64, 128)        # head dims P and state dims N it takes
 MAX_CHUNK = 4096
@@ -57,15 +65,17 @@ def _check(x, dt, a, b, c, chunk) -> None:
                          f"match x {tuple(x.shape)}")
     if chunk < 1 or s % chunk:
         raise ValueError(f"seq {s} must divide chunk {chunk}")
-    if not (x.dtype == b.dtype == c.dtype) or x.dtype not in _DTYPES:
-        raise ValueError(f"x, b, c must share float32 or bfloat16, got "
-                         f"{x.dtype}, {b.dtype}, {c.dtype}")
+    if not (x.dtype == b.dtype == c.dtype) or x.dtype not in _DTYPES and not (
+            x.dtype == torch.float64 and x.device.type == "cpu"):
+        raise ValueError(f"x, b, c must share float32 or bfloat16 (or "
+                         f"float64 on the CPU), got {x.dtype}, {b.dtype}, "
+                         f"{c.dtype}")
     if len({t.device for t in (x, dt, a, b, c)}) != 1:
         raise ValueError("x, dt, a, b, c must be on one device")
     if any(t.requires_grad for t in (x, dt, a, b, c)):
-        raise ValueError("ssd_chunk_intra is a forward kernel with no "
-                         "backward: inputs that require grad take the plain "
-                         "path (repro_torch.models.ssm.ssd_chunked)")
+        raise ValueError("a direct call of the SSD kernels has no "
+                         "backward: inputs that require grad go through "
+                         "repro_torch.kernels.ops.ssd_chunk_intra_bshp")
 
 
 def _head_strides(t: torch.Tensor, h: int) -> tuple:
@@ -138,7 +148,8 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """x: [B,H,S,P]; dt: [B,H,S]; a: [B,H]; b, c: [B,G,S,N] with G = H or 1
     (every head reads the same b, c); any strides with the last dim
     contiguous, on every device (a stride of 0 broadcasts).  Returns (y
-    [B,H,S,P] in x's dtype, states [B,H,S/chunk,P,N] float32), written into
+    [B,H,S,P] in x's dtype, states [B,H,S/chunk,P,N] float32, float64 for
+    float64 inputs, which only the CPU's plain version takes), written into
     `y` and `states` when given (views of those shapes, last dims
     contiguous).  On the card, a bfloat16 x, b or c whose rows do not start
     on 16 bytes is copied to a dense tensor first, and such a `y` is
@@ -149,9 +160,9 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     bs, h, s, p = x.shape
     n = b.shape[-1]
     shape_y, shape_st = (bs, h, s, p), (bs, h, s // chunk, p, n)
+    acc = work_dtype(x)
     for name, out, shape, dtype in (("y", y, shape_y, x.dtype),
-                                    ("states", states, shape_st,
-                                     torch.float32)):
+                                    ("states", states, shape_st, acc)):
         if out is not None and (out.shape != shape or out.dtype != dtype
                                 or out.device != x.device):
             raise ValueError(f"{name} must be {dtype} {shape} on {x.device}, "
@@ -165,7 +176,7 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if y is None:
         y = torch.empty(shape_y, dtype=x.dtype, device=x.device)
     if states is None:
-        states = torch.empty(shape_st, dtype=torch.float32, device=x.device)
+        states = torch.empty(shape_st, dtype=acc, device=x.device)
     args = (x, dt, a, b, c, chunk, y, states)
     if build.through_op(x, dt, a, b, c, y, states):
         torch.ops.repro_torch.ssd_chunk_intra_heads(*args)
@@ -232,3 +243,240 @@ def ssd_chunk_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y, states = ssd_chunk_intra_heads(x[:, None], dt[:, None], a[:, None],
                                       b[:, None], c[:, None], chunk)
     return y[:, 0], states[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the backward
+
+# repro_ssd_chunk_bwd's C parameters: x, dt, a, b, c, dy, dstates, dx, ddt,
+# da, part, rows, work; dtype, batch, heads, groups, seqlen, chunk, p, n,
+# splits; the strides of x, dt (b, h, s), a (b, h), b, c (b, g, s), dy
+# (b, h, s), dstates (b, h, chunk), dx, ddt (b, h, s); stream
+BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+                + [ctypes.c_int64] * 26 + [ctypes.c_void_p])
+SMS = 132                       # an H100 SXM's streaming multiprocessors
+MAX_SPLIT_HEADS = 64            # heads of one block of the dB / dC pass
+
+BWD_KERNEL = build.Kernel("ssd_chunk", "repro_ssd_chunk_bwd", BWD_ARGTYPES)
+
+
+def bwd_splits(bs: int, h: int, g: int, chunks: int, row_tiles: int) -> int:
+    """How many blocks of the dB / dC pass share one group's heads (each
+    sums its own heads' dS and writes a partial dB, dC that the wrapper
+    adds in order): enough blocks for four a streaming multiprocessor,
+    at most MAX_SPLIT_HEADS heads a block, at most one block a head."""
+    hpg = h // g
+    blocks = bs * g * chunks * 2 * row_tiles
+    return min(hpg, max(1, -(-4 * SMS // blocks), -(-hpg // MAX_SPLIT_HEADS)))
+
+
+def bwd_scratch(x: torch.Tensor, b: torch.Tensor, chunk: int, splits: int
+                ) -> dict:
+    """Elements of the backward's scratch tensors for x [B,H,S,P], b
+    [B,G,S,N]: `rows` (float64), four values a row and head (the rows and
+    columns of dM o M summed, the states' decay term, x's share of ddt);
+    `part` (float32), each split's dB and dC; `da` (float32), d(dt a) dt
+    summed over each chunk."""
+    bs, h, s, _ = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    return dict(rows=4 * bs * h * s, part=2 * splits * bs * g * s * n,
+                da=bs * h * (s // chunk))
+
+
+SCRATCH_DTYPES = dict(rows=torch.float64, part=torch.float32,
+                      da=torch.float32)
+
+
+def _contiguous_block(t: torch.Tensor) -> bool:
+    """The [P, N] block of dstates contiguous and 16-byte aligned with its
+    strides (the kernel reads it in rows of 16 bytes)."""
+    return (t.stride(-1) == 1 and t.stride(-2) == t.shape[-1]
+            and t.data_ptr() % 16 == 0
+            and all(st % 4 == 0 for st in t.stride()[:3]))
+
+
+def bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da, part, rows,
+                    work, chunk: int, splits: int) -> tuple:
+    """repro_ssd_chunk_bwd's arguments but the stream, for checked x, dt
+    (float32), a (float32) [B,H], b, c [B,G,S,N], dy [B,H,S,P] (x's dtype),
+    dstates [B,H,L,P,N] float32, the outputs dx (x's dtype) and ddt
+    (float32) in x's and dt's layouts, and the scratch `da`, `part`,
+    `rows` (`bwd_scratch`, `SCRATCH_DTYPES`) and `work` (uint8,
+    `work_bytes`);
+    raises on what the kernel does not take.  Reads no device memory."""
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    if p not in DIMS or n not in DIMS:
+        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+    if g not in (1, h):
+        raise ValueError(f"b and c must have 1 or {h} groups, not {g}")
+    if not 1 <= splits <= h // g:
+        raise ValueError(f"splits {splits} must be in [1, {h // g}]")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32 or \
+            ddt.dtype != torch.float32:
+        raise ValueError("dt, a and ddt must be float32")
+    if dy.dtype != x.dtype or dx.dtype != x.dtype or \
+            dstates.dtype != torch.float32:
+        raise ValueError("dy and dx must be x's dtype, dstates float32")
+    if dy.shape != x.shape or dx.shape != x.shape or ddt.shape != dt.shape \
+            or dstates.shape != (bs, h, s // chunk, p, n):
+        raise ValueError("dy, dx, ddt or dstates do not match x")
+    if any(t.stride(-1) != 1 for t in (x, b, c, dy, dx)):
+        raise ValueError("the last dim of x, b, c, dy and dx must be "
+                         "contiguous")
+    if not _contiguous_block(dstates):
+        raise ValueError("dstates' [P, N] blocks must be contiguous and "
+                         "start on 16 bytes")
+    if x.dtype == torch.bfloat16 and not all(
+            _rows_aligned(t, t.stride()[:3]) for t in (x, b, c, dy, dx)):
+        raise ValueError("bfloat16 rows of x, b, c, dy and dx must start on "
+                         "16 bytes")
+    need = bwd_scratch(x, b, chunk, splits)
+    for name, t in (("rows", rows), ("part", part), ("da", da)):
+        if t.dtype != SCRATCH_DTYPES[name] or t.numel() < need[name] or \
+                not t.is_contiguous():
+            raise ValueError(f"{name} must be {need[name]} contiguous "
+                             f"{SCRATCH_DTYPES[name]}")
+    if work.numel() * work.element_size() < work_bytes(x, chunk) or \
+            work.data_ptr() % 16:
+        raise ValueError(f"the backward needs a 16-byte aligned work buffer "
+                         f"of {work_bytes(x, chunk)} bytes")
+    return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), dy.data_ptr(), dstates.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), da.data_ptr(), part.data_ptr(), rows.data_ptr(),
+            work.data_ptr(), _DTYPES[x.dtype], bs, h, g, s, chunk, p, n,
+            splits, *x.stride()[:3], *dt.stride(), *a.stride(),
+            *b.stride()[:3], *c.stride()[:3], *dy.stride()[:3],
+            *dstates.stride()[:3], *dx.stride()[:3], *ddt.stride())
+
+
+def ssd_chunk_intra_bwd_heads(x: torch.Tensor, dt: torch.Tensor,
+                              a: torch.Tensor, b: torch.Tensor,
+                              c: torch.Tensor, dy: torch.Tensor,
+                              dstates: torch.Tensor, chunk: int, *,
+                              dx: Optional[torch.Tensor] = None,
+                              ddt: Optional[torch.Tensor] = None,
+                              db: Optional[torch.Tensor] = None,
+                              dc: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of `ssd_chunk_intra_heads` given dy [B,H,S,P] (x's
+    dtype) and dstates [B,H,L,P,N] (float32), for its inputs (x [B,H,S,P],
+    dt [B,H,S], a [B,H], b, c [B,G,S,N] with G = H or 1): (dx in x's
+    dtype, ddt [B,H,S] and da [B,H] float32 (float64 for float64 inputs),
+    db, dc [B,G,S,N] in b's dtype; a group's db, dc summed over its
+    heads), written into `dx`,
+    `ddt`, `db`, `dc` when given (views of those shapes, last dims
+    contiguous).  Inputs that require grad are refused, as by the
+    forward.  On the card, bfloat16 rows off 16 bytes and dstates whose
+    [P, N] blocks are not dense are copied first.  Under a dispatch mode
+    it runs through the custom op `repro_torch::ssd_chunk_intra_bwd`."""
+    _check(x, dt, a, b, c, chunk)
+    bs, h, s, p = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.requires_grad:
+        raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)}")
+    if dstates.shape != (bs, h, s // chunk, p, n) or dstates.requires_grad:
+        raise ValueError(f"dstates must be {(bs, h, s // chunk, p, n)}")
+    outs, acc = [], work_dtype(x)
+    for name, out, shape, dtype in (("dx", dx, x.shape, x.dtype),
+                                    ("ddt", ddt, dt.shape, acc),
+                                    ("db", db, b.shape, b.dtype),
+                                    ("dc", dc, c.shape, c.dtype)):
+        if out is None:
+            out = torch.empty(shape, dtype=dtype, device=x.device)
+        elif out.shape != shape or out.dtype != dtype or \
+                out.device != x.device or \
+                (name != "ddt" and out.stride(-1) != 1):
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)} on "
+                             f"{x.device}, its last dim contiguous but "
+                             f"ddt's")
+        outs.append(out)
+    dx, ddt, db, dc = outs
+    da = torch.empty((bs, h), dtype=acc, device=x.device)
+    args = (x, dt, a, b, c, dy, dstates.to(acc), chunk, dx, ddt, da, db, dc)
+    if build.through_op(*args[:7], *args[8:]):
+        torch.ops.repro_torch.ssd_chunk_intra_bwd(*args)
+    else:
+        _ssd_bwd(*args)
+    return dx, ddt, da, db, dc
+
+
+def _ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+             dstates: torch.Tensor, chunk: int, dx: torch.Tensor,
+             ddt: torch.Tensor, da: torch.Tensor, db: torch.Tensor,
+             dc: torch.Tensor) -> None:
+    """The checked backward, writing dx, ddt, da, db and dc."""
+    if x.device.type == "cpu":
+        for out, ref in zip((dx, ddt, da, db, dc),
+                            ssd_chunk_intra_bwd_reference(
+                                x, dt, a, b, c, dy, dstates, chunk)):
+            out.copy_(ref)
+        return
+
+    def launch(args):
+        with torch.cuda.device(x.device):
+            BWD_KERNEL.launch(
+                *args, torch.cuda.current_stream(x.device).cuda_stream)
+    bwd_launch(x, dt, a, b, c, dy, dstates, chunk, dx, ddt, da, db, dc,
+               launch)
+
+
+def bwd_launch(x, dt, a, b, c, dy, dstates, chunk: int, dx, ddt, da, db, dc,
+               launch: Callable[[tuple], None]) -> None:
+    """The card's backward around `launch(args)` (the kernel's launch; a
+    stand-in on the CPU in tests): dense copies of what the kernel cannot
+    read, the scratch, the launch plan, then the splits' partial dB and dC
+    added in order, da summed over the chunks, and dx copied back where it
+    was written through a dense tensor."""
+    out_dx = dx
+    if x.dtype == torch.bfloat16:
+        x, b, c = dense_if_unaligned(x, b, c)
+        if not _rows_aligned(dy, dy.stride()[:3]):
+            dy = dy.contiguous()
+        if not _rows_aligned(dx, dx.stride()[:3]):
+            dx = torch.empty(dx.shape, dtype=x.dtype, device=x.device)
+    if not _contiguous_block(dstates):
+        dstates = dstates.contiguous()
+    dt, a = dt.float(), a.float()
+    bs, h, s, _ = x.shape
+    g, n = b.shape[1], b.shape[-1]
+    splits = bwd_splits(bs, h, g, s // chunk, -(-chunk // TILE))
+    rows, part, da_chunks = (
+        torch.empty(n, dtype=SCRATCH_DTYPES[name], device=x.device)
+        for name, n in bwd_scratch(x, b, chunk, splits).items())
+    work = torch.empty(work_bytes(x, chunk), dtype=torch.uint8,
+                       device=x.device)
+    launch(bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da_chunks,
+                           part, rows, work, chunk, splits))
+    part = part.view(2, splits, bs, g, s, n).sum(1)
+    db.copy_(part[0])
+    dc.copy_(part[1])
+    torch.sum(da_chunks.view(bs, h, -1), -1, out=da)
+    if out_dx is not dx:
+        out_dx.copy_(dx)
+
+
+_ssd_bwd_op = torch.library.custom_op("repro_torch::ssd_chunk_intra_bwd",
+                                      _ssd_bwd, mutates_args=(
+                                          "dx", "ddt", "da", "db", "dc"))
+
+
+@_ssd_bwd_op.register_fake
+def _(x, dt, a, b, c, dy, dstates, chunk, dx, ddt, da, db, dc):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_intra_bwd)
+def ssd_bwd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, dy_shape,
+                  dstates_shape, chunk, *args, out_shape=None,
+                  **kwargs) -> int:
+    """The matmul FLOPs of the plain backward, per chunk of Q rows: C.B^T
+    again, dC and dB once per group of b, c (3 x 2 Q Q N), and per head
+    dM = dy xdt^T and M^T dy (2 x 2 Q Q P) and the states' two terms
+    (2 x 2 P Q N): 2 * B * S * (3 G Q N + 2 H (Q P + P N))."""
+    bs, h, s, p = x_shape
+    g, n = b_shape[1], b_shape[-1]
+    return 2 * bs * s * (3 * g * chunk * n + 2 * h * (chunk * p + p * n))

@@ -9,8 +9,9 @@ The SSD recurrence per head (state [P, N], input x_t [P], B_t, C_t [N]):
 Prefill of a prompt whose length is a multiple of the chunk uses the chunked
 block decomposition: the intra-chunk term and each chunk's terminal state
 (steps 1 and 2) come from the hand-written SSD kernel on the card
-(`repro_torch.kernels.ssd_chunk_intra_bshp`), the inter-chunk recurrence and
-the read-out of the carried state (steps 3 and 4) from plain ops.  Any other
+(`repro_torch.kernels.ssd_chunk_intra_bshp`; in training its gradients
+from the backward kernel), the inter-chunk recurrence and the read-out of
+the carried state (steps 3 and 4) from plain ops.  Any other
 prompt, and decode, take the sequential recurrence `ssd_reference`, as in
 the reference.  Decode keeps (conv_state, ssm_state) per layer.
 
@@ -108,10 +109,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     Steps 1 and 2 (the intra-chunk output and each chunk's state) run in
     float32 inside the SSD kernel on the card, or its plain version on the
-    CPU and under autograd; the reference runs them in the input dtype, so
-    in bf16 the two differ by bf16 roundings, and in float32 they agree.
-    Steps 3 and 4 follow the reference: a float32 carry, emitted and read
-    out in the input dtype.
+    CPU; under autograd their gradients come from the backward kernel (its
+    plain version on the CPU), also in float32.  The reference runs them in
+    the input dtype, so in bf16 the two differ by bf16 roundings, and in
+    float32 they agree.  Steps 3 and 4 follow the reference under autograd:
+    a float32 carry, emitted and read out in the input dtype.
 
     The span `ssm.ssd` covers the call and, while the recorder is on, its
     backward pass (`obs.backward_span`)."""
@@ -132,12 +134,11 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     l = s // chunk
     dt = dt.float()
     a = a.float()
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, dt, a, b, c))
 
-    # 1, 2. intra-chunk output and per-chunk terminal states
+    # 1, 2. intra-chunk output and per-chunk terminal states (under autograd
+    # the forward and backward kernels)
     y_diag, states = ssd_chunk_intra_bshp(x, dt, a, b.to(cdt), c.to(cdt),
-                                          chunk, plain=needs_grad)
+                                          chunk)
 
     # 3. inter-chunk recurrence (f32 carry; emits in compute dtype)
     da_cs = torch.cumsum((dt * a).reshape(bs, l, chunk, h), dim=2)

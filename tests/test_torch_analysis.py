@@ -331,3 +331,30 @@ def test_fake_ssd_op_matches_the_plain_version(g):
                                                         q, fy, fst)
     assert kernel.flops == plain.flops == 2 * bs * s * (
         g * q * n + h * (q * p + p * n))
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_fake_ssd_backward_op_matches_the_plain_version(g):
+    """The backward's custom op under fake tensors: its outputs' shapes and
+    its FLOP formula, the matmul FLOPs of the plain backward."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    bs, h, s, p, n, q = 2, 4, 64, 16, 32, 16
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(bs, h, s, p, generator=gen)
+    dt = torch.rand(bs, h, s, generator=gen)
+    a = -torch.rand(bs, h, generator=gen)
+    bb = torch.randn(bs, g, s, n, generator=gen)
+    cc = torch.randn(bs, g, s, n, generator=gen)
+    dy = torch.randn(bs, h, s, p, generator=gen)
+    dst = torch.randn(bs, h, s // q, p, n, generator=gen)
+    with thc.Counter() as plain:
+        ref = kref.ssd_chunk_intra_bwd_reference(x, dt, a, bb, cc, dy, dst,
+                                                 q)
+    with FakeTensorMode() as fm:
+        fake = [fm.from_tensor(t) for t in (x, dt, a, bb, cc, dy, dst)]
+        outs = [torch.empty(t.shape, dtype=t.dtype) for t in ref]
+        with thc.Counter() as kernel:
+            torch.ops.repro_torch.ssd_chunk_intra_bwd(*fake[:7], q, *outs)
+    assert [t.shape for t in outs] == [t.shape for t in ref]
+    assert kernel.flops == plain.flops == 2 * bs * s * (
+        3 * g * q * n + 2 * h * (q * p + p * n))

@@ -198,6 +198,14 @@ def test_library_path_covers_the_shared_headers(monkeypatch, tmp_path):
     assert build.library_path("k").parent == build.BUILD_DIR
 
 
+def test_split_compile_is_the_ssd_librarys_own_flag():
+    """ssd_chunk.cu alone builds with ptxas split over the CPUs: the other
+    libraries keep the common flags, so their code and names stay."""
+    assert "--split-compile=0" in build.nvcc_flags("ssd_chunk")
+    for name in ("flash_attention", "chunk_accum"):
+        assert build.nvcc_flags(name) == build.NVCC_FLAGS
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     root = os.path.join(os.path.dirname(__file__), "..")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,

@@ -11,20 +11,37 @@ known to meet them before the card runs it.  The launch plan, what a CUDA
 call hands the C entry point, is checked against the model's strided
 views.
 
+The backward kernel's oracle, `ref.ssd_chunk_intra_bwd_reference`, is held
+to torch.autograd of the plain forward in float64 (1e-12 of each
+gradient's size); the autograd Function to finite differences
+(gradcheck); the backward's launch plan and C prototype as the forward's.
+
 Tolerances (chip_smoke.py's SSD_TOL and SSD_TOL_BF16_Y): states, float32,
 atol 1e-4 + rtol 1e-4 (two bf16 parts carry each term to ~2**-16, over up
 to 512 terms); y, bf16, atol 1e-3 + rtol 2**-7 (one bf16 rounding of
 float32 values that agree to ~1e-5).
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.ssd_scan import ssd_chunk_intra as jax_ssd_chunk_intra
-from repro_torch.kernels import ssd_chunk_intra_reference
-from repro_torch.kernels.ssd_scan import (ARGTYPES, DIMS, MAX_CHUNK,
-                                          dense_if_unaligned, launch_args,
+from repro_torch.kernels import ssd_chunk_intra_bshp, ssd_chunk_intra_reference
+from repro_torch.kernels.build import CSRC
+from repro_torch.kernels.ops import SSDIntraBSHP, ssd_chunk_intra_bshp_bwd
+from repro_torch.kernels.ref import (ssd_chunk_intra_bwd_reference,
+                                     ssd_chunk_intra_heads_reference)
+from repro_torch.kernels.ssd_scan import (ARGTYPES, BWD_ARGTYPES, DIMS,
+                                          MAX_CHUNK, SCRATCH_DTYPES,
+                                          bwd_launch,
+                                          bwd_launch_args, bwd_scratch,
+                                          bwd_splits, dense_if_unaligned,
+                                          launch_args,
+                                          ssd_chunk_intra_bwd_heads,
                                           work_bytes)
 
 torch.set_num_threads(1)
@@ -223,3 +240,252 @@ def test_ssd_wrapper_copies_rows_off_16_bytes_to_dense_ones():
     assert all(got is want for got, want in
                zip(dense_if_unaligned(*aligned[:1], *aligned[3:5]),
                    (aligned[0], aligned[3], aligned[4])))
+
+
+# ---------------------------------------------------------------------- #
+# the backward: its plain version, the autograd Function, the launch plan
+# ---------------------------------------------------------------------- #
+
+def heads_inputs(bs, h, g, s, p, n, q, dtype=torch.float64, seed=0,
+                 overflow=False):
+    """x, dt, a [B,H], b, c [B,G,S,N], dy, dstates in the heads layout;
+    `overflow`: dt + 1 and a * 40, a cumulative decay past exp's range."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype)
+    dt = torch.nn.functional.softplus(rnd(bs, h, s)) + (1.0 if overflow
+                                                         else 0.0)
+    a = -torch.exp(rnd(h)).expand(bs, h) * (40.0 if overflow else 1.0)
+    return (rnd(bs, h, s, p), dt, a, rnd(bs, g, s, n), rnd(bs, g, s, n),
+            rnd(bs, h, s, p), rnd(bs, h, s // q, p, n))
+
+
+def autograd_grads(x, dt, a, b, c, dy, dstates, q):
+    """torch.autograd of the plain forward: the oracle of the backward."""
+    ins = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    y, st = ssd_chunk_intra_heads_reference(*ins, q)
+    ((y * dy).sum() + (st * dstates).sum()).backward()
+    return [t.grad for t in ins]
+
+
+def check_grads(got, ref, rtol):
+    """Each gradient within rtol of the largest magnitude of its reference,
+    or of 1 where that is smaller (da vanishes when every decay does)."""
+    for name, g, r in zip(("dx", "ddt", "da", "db", "dc"), got, ref):
+        assert torch.isfinite(g).all(), name
+        err = (g - r).abs().max() / r.abs().max().clamp_min(1.0)
+        assert err <= rtol, (name, err.item())
+
+
+@pytest.mark.parametrize("q", [1, 16, 64])
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("p", DIMS)
+@pytest.mark.parametrize("n", DIMS)
+def test_bwd_reference_equals_autograd_of_the_plain_forward(q, g, p, n):
+    """float64, two chunks a row, dy and dstates both non-zero, b and c
+    shared by the 3 heads (G = 1) or one per head (G = H)."""
+    inputs = heads_inputs(2, 3, g, 2 * q, p, n, q, seed=q + p + n + g)
+    got = ssd_chunk_intra_bwd_reference(*inputs, q)
+    ref = autograd_grads(*inputs, q)
+    assert [t.shape for t in got[:2] + got[3:]] == \
+        [t.shape for t in ref[:2] + ref[3:]]
+    check_grads(got, ref, 1e-12)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-9),
+                                        (torch.float32, 1e-5)])
+def test_bwd_reference_stays_finite_when_the_decay_overflows(dtype, rtol):
+    """A cumulative decay of thousands over 16 rows: exp of the differences
+    above the diagonal overflows (float32's range from ~88, float64's from
+    ~709), so the plain backward masks before every exp.  Gradients finite
+    and equal to autograd's (whose forward masks first too)."""
+    inputs = heads_inputs(1, 2, 1, 32, 16, 16, 16, dtype=dtype, seed=8,
+                          overflow=True)
+    cum = torch.cumsum(inputs[1] * inputs[2][..., None], -1)
+    assert (cum[..., 15] - cum[..., 0]).abs().min() > 709
+    check_grads(ssd_chunk_intra_bwd_reference(*inputs, 16),
+                autograd_grads(*inputs, 16), rtol)
+
+
+def test_bwd_reference_returns_the_input_dtypes():
+    """bf16 x, b, c: dx, db, dc in bf16, ddt and da in float32, as the
+    backward kernel writes them."""
+    x, dt, a, b, c, dy, st = heads_inputs(1, 2, 1, 32, 16, 32, 16,
+                                          dtype=torch.float32)
+    got = ssd_chunk_intra_bwd_reference(x.bfloat16(), dt, a, b.bfloat16(),
+                                        c.bfloat16(), dy.bfloat16(), st, 16)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16]
+
+
+def test_autograd_function_passes_gradcheck():
+    """SSDIntraBSHP on CPU tensors in float64: the plain forward and the
+    plain backward, against finite differences, every input."""
+    gen = torch.Generator().manual_seed(3)
+    bs, s, h, p, n, q = 1, 8, 2, 3, 4, 4
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+    ins = (rnd(bs, s, h, p), torch.nn.functional.softplus(rnd(bs, s, h)),
+           -torch.exp(rnd(h)), rnd(bs, s, n), rnd(bs, s, n))
+    ins = [t.requires_grad_() for t in ins]
+    assert torch.autograd.gradcheck(
+        lambda *t: SSDIntraBSHP.apply(*t, q), ins)
+
+
+def test_bshp_block_under_autograd_is_the_function():
+    """Grad enabled and an input that requires grad: the Function; else
+    (no grad, inference) the kernel's direct path, no graph."""
+    x, dt, a, b, c, _, _ = heads_inputs(1, 2, 1, 32, 16, 16, 16,
+                                        dtype=torch.float32)
+    views = (x.transpose(1, 2), dt.transpose(1, 2), a[0], b[:, 0], c[:, 0])
+    y, _ = ssd_chunk_intra_bshp(*views, 16)
+    assert y.grad_fn is None
+    y, _ = ssd_chunk_intra_bshp(views[0].requires_grad_(), *views[1:], 16)
+    assert type(y.grad_fn).__name__ == "SSDIntraBSHPBackward"
+    with torch.no_grad():
+        assert ssd_chunk_intra_bshp(*views, 16)[0].grad_fn is None
+
+
+def bwd_views(bs, s, h, p, n, dtype, q=64, g=1, offset=0):
+    """The backward's arguments as the Function hands them over: the
+    forward's model views (`model_views`), dy and dstates as transposed
+    views of [B,S,H,P] and [B,L,H,P,N] gradients, dx and ddt as transposed
+    views of [B,S,H,P] and [B,S,H] outputs, and the scratch."""
+    x, dt, a, b, c, _, _, _ = model_views(bs, s, h, p, n, dtype, offset)
+    if g > 1:
+        b = torch.zeros(bs, g, s, n, dtype=dtype)
+        c = torch.zeros(bs, g, s, n, dtype=dtype)
+    dy = torch.zeros(bs, s, h, p, dtype=dtype).transpose(1, 2)
+    dst = torch.zeros(bs, s // q, h, p, n).transpose(1, 2)
+    dx = torch.empty(bs, s, h, p, dtype=dtype).transpose(1, 2)
+    ddt = torch.empty(bs, s, h).transpose(1, 2)
+    splits = bwd_splits(bs, h, g, s // q, -(-q // 64))
+    need = bwd_scratch(x, b, q, splits)
+    scratch = [torch.empty(need[k], dtype=SCRATCH_DTYPES[k])
+               for k in ("da", "part", "rows")]
+    work = torch.empty(work_bytes(x, q), dtype=torch.uint8)
+    return (x, dt, a, b, c, dy, dst, dx, ddt, *scratch, work), splits
+
+
+@pytest.mark.parametrize("p", DIMS)
+@pytest.mark.parametrize("n", DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_launch_plan_takes_every_p_and_n(p, n, dtype):
+    """What a CUDA call hands the backward's C entry point through the
+    model's strided views: pointers, dtype, shapes, the head split and
+    every stride (b and c by group)."""
+    bs, s, h = 2, 128, 3
+    views, splits = bwd_views(bs, s, h, p, n, dtype)
+    args = bwd_launch_args(*views, 64, splits)
+    assert len(args) == len(BWD_ARGTYPES) - 1     # all but the stream
+    assert args[:13] == tuple(t.data_ptr() for t in views)
+    assert args[13:22] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
+                           bs, h, 1, s, 64, p, n, splits)
+    x, dt, a, b, c, dy, dst, dx, ddt = views[:9]
+    row = h * p + 2 * n
+    assert args[22:25] == (s * row, p, row) == x.stride()[:3]
+    assert args[25:30] == dt.stride() + (0, 1)    # a: batch stride 0
+    assert args[30:36] == b.stride()[:3] + c.stride()[:3]
+    assert args[36:] == (dy.stride()[:3] + dst.stride()[:3] +
+                         dx.stride()[:3] + ddt.stride())
+
+
+def test_bwd_launch_plan_refuses_what_the_kernel_does_not_take():
+    views, splits = bwd_views(1, 128, 2, 64, 64, torch.bfloat16)
+    bwd_launch_args(*views, 64, splits)
+    x, dt, a, b, c, dy, dst, dx, ddt, da, part, rows, work = views
+    with pytest.raises(ValueError, match="head dim 48"):
+        bwd_launch_args(*bwd_views(1, 128, 2, 48, 64, torch.bfloat16)[0],
+                        64, 1)
+    with pytest.raises(ValueError, match=f"> {MAX_CHUNK}"):
+        bwd_launch_args(*views, 2 * MAX_CHUNK, splits)
+    with pytest.raises(ValueError, match="splits"):
+        bwd_launch_args(*views, 64, 3)
+    with pytest.raises(ValueError, match="groups"):
+        bwd_launch_args(x, dt, a, b.expand(1, 3, 128, 64), *views[4:], 64, 1)
+    with pytest.raises(ValueError, match="float32"):
+        bwd_launch_args(x, dt.double(), *views[2:], 64, splits)
+    with pytest.raises(ValueError, match="dstates"):
+        bwd_launch_args(*views[:6], dst.transpose(-1, -2), *views[7:], 64,
+                        splits)
+    with pytest.raises(ValueError, match="rows"):
+        bwd_launch_args(*views[:11], rows[:-1], work, 64, splits)
+    for short in (work[:-16], work[8:]):       # small, unaligned
+        with pytest.raises(ValueError, match="work buffer"):
+            bwd_launch_args(*views[:12], short, 64, splits)
+    # xbc's rows shifted by one element: bf16 rows 2 bytes off 16
+    with pytest.raises(ValueError, match="16 bytes"):
+        bwd_launch_args(*bwd_views(1, 128, 2, 64, 64, torch.bfloat16,
+                                   offset=1)[0], 64, 1)
+    bwd_launch_args(*bwd_views(1, 128, 2, 64, 64, torch.float32,
+                               offset=1)[0], 64, 1)
+    # G = H: b and c one per head
+    bwd_launch_args(*bwd_views(1, 128, 2, 64, 64, torch.bfloat16, g=2)[0],
+                    64, 1)
+
+
+@pytest.mark.parametrize("bs,h,g,chunks,tiles,want", [
+    (2, 48, 1, 8, 8, 3),       # mamba2-780m's train step: 256 -> 768 blocks
+    (2, 64, 1, 16, 4, 3),      # zamba2-1.2b's at 4096 rows
+    (2, 3, 3, 2, 1, 1),        # G = H: one head a group
+    (1, 256, 1, 64, 64, 4),    # at most 64 heads a block
+    (1, 48, 1, 1, 1, 48),      # a short sequence: a block a head
+])
+def test_bwd_splits_fill_the_card(bs, h, g, chunks, tiles, want):
+    assert bwd_splits(bs, h, g, chunks, tiles) == want
+
+
+def test_bwd_ctypes_signature_matches_the_c_entry_point():
+    """The backward builds only on the card, so its binding's argument
+    list is held here against the C prototype in the source."""
+    src = (CSRC / "ssd_chunk.cu").read_text()
+    params = re.search(r"int repro_ssd_chunk_bwd\((.*?)\)", src,
+                       re.S).group(1)
+    c_types = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+               "int64_t": ctypes.c_int64}
+    declared = [c_types[re.sub(r"^const ", "", p.strip()).rsplit(" ", 1)[0]
+                        .replace(" *", "*")]
+                for p in params.split(",")]
+    assert declared == BWD_ARGTYPES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bwd_wrapper_takes_the_functions_views(dtype, offset):
+    """The autograd Function's backward through the backward wrapper on
+    the model's views (xbc's rows shifted by `offset` elements): on the CPU
+    the plain backward, written into the given views as into the
+    Function's own buffers (`ssd_chunk_intra_bshp_bwd`); and the
+    card's flow around the launch (dense copies, scratch, launch plan, the
+    splits' sum) with a stand-in for the kernel."""
+    bs, s, h, p, n, q = 2, 128, 3, 16, 32, 64
+    x, dt, a, b, c, _, _, _ = model_views(bs, s, h, p, n, dtype, offset)
+    gen = torch.Generator().manual_seed(offset)
+    for t in (x, dt, b, c):
+        t.copy_(torch.randn(t.shape, generator=gen).to(t.dtype))
+    a = -torch.rand(h, generator=gen)
+    dy = torch.randn(bs, s, h, p, generator=gen).to(dtype)
+    dst = torch.randn(bs, s // q, h, p, n, generator=gen)
+    bshp = (x.transpose(1, 2), dt.transpose(1, 2), a, b[:, 0], c[:, 0])
+    views = (x, dt, a.expand(bs, h), b, c, dy.transpose(1, 2),
+             dst.transpose(1, 2))
+    dx = torch.empty(bs, s, h, p, dtype=dtype)
+    ddt = torch.empty(bs, s, h)
+    db, dc = torch.empty(bs, s, n, dtype=dtype), torch.empty(bs, s, n,
+                                                             dtype=dtype)
+    _, _, da, _, _ = ssd_chunk_intra_bwd_heads(
+        *views, q, dx=dx.transpose(1, 2), ddt=ddt.transpose(1, 2),
+        db=db[:, None], dc=dc[:, None])
+    for got, want in zip((dx, ddt, da.sum(0), db, dc),
+                         ssd_chunk_intra_bshp_bwd(*bshp, dy, dst, q)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    launched = []
+    bwd_launch(*views, q, dx.transpose(1, 2), ddt.transpose(1, 2),
+               torch.empty(bs, h), db[:, None], dc[:, None], launched.append)
+    (args,) = launched
+    assert len(args) == len(BWD_ARGTYPES) - 1
+    assert args[13:22] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
+                           bs, h, 1, s, q, p, n, bwd_splits(bs, h, 1, 2, 1))

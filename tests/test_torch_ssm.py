@@ -33,8 +33,9 @@ from repro.models import build_model as jax_build
 from repro.models import ssm as jssm
 from repro_torch.configs import reduced_config
 from repro_torch.convert import from_jax_params
-from repro_torch.kernels import (SSD_KERNEL, build, ssd_chunk_intra,
-                                 ssd_chunk_intra_heads, ssd_chunk_reference)
+from repro_torch.kernels import (SSD_BWD_KERNEL, SSD_KERNEL, build,
+                                 ssd_chunk_intra, ssd_chunk_intra_heads,
+                                 ssd_chunk_reference)
 from repro_torch.kernels.ops import ssd_chunk_intra_bshp
 from repro_torch.kernels.ssd_scan import ARGTYPES
 from repro_torch.models import build_model
@@ -244,25 +245,35 @@ def test_ssd_chunked_equals_sequential_recurrence():
     close(f, rf.numpy(), ATOL, 1e-5)
 
 
-def test_ssd_chunked_under_autograd_takes_plain_path_with_gradients():
-    """Inputs that require grad take the plain version on every device (the
-    kernel has no backward); the gradient equals JAX's."""
+def test_ssd_chunked_under_autograd_takes_plain_path_with_gradients(
+        monkeypatch):
+    """Inputs that require grad go through the SSD block's autograd
+    Function (on the card the forward and backward kernels); on CPU tensors
+    its forward and backward are the plain versions, and no kernel
+    launches.  Every gradient, x, dt, a, b and c, equals JAX's."""
     x, dt, a, b, c, _ = ssd_model_inputs(1, 32, 2, 8, 16, seed=7)
 
-    def loss_j(x, b):
-        y, f = jssm.ssd_chunked(x, jnp.asarray(dt), jnp.asarray(a), b,
-                                jnp.asarray(c), 16)
+    def loss_j(*args):
+        y, f = jssm.ssd_chunked(*args, 16)
         return (y ** 2).sum() + f.sum()
-    gj = jax.grad(loss_j, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(b))
-    xt = torch.from_numpy(x).requires_grad_()
-    bt = torch.from_numpy(b).requires_grad_()
-    before = SSD_KERNEL.launches
-    y, f = tssm.ssd_chunked(xt, torch.from_numpy(dt), torch.from_numpy(a), bt,
-                            torch.from_numpy(c), 16)
+    gj = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, (x, dt, a, b, c)))
+    ins = [torch.from_numpy(v).requires_grad_() for v in (x, dt, a, b, c)]
+    before = SSD_KERNEL.launches, SSD_BWD_KERNEL.launches
+    calls = []
+    real = tssm.ssd_chunk_intra_bshp
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        calls.append(type(out[0].grad_fn).__name__)
+        return out
+    monkeypatch.setattr(tssm, "ssd_chunk_intra_bshp", spy)
+    y, f = tssm.ssd_chunked(*ins, 16)
     ((y ** 2).sum() + f.sum()).backward()
-    assert SSD_KERNEL.launches == before
-    close(xt.grad, gj[0], 1e-3, 1e-4)
-    close(bt.grad, gj[1], 1e-3, 1e-4)
+    assert calls and "SSDIntraBSHP" in calls[0]
+    assert (SSD_KERNEL.launches, SSD_BWD_KERNEL.launches) == before
+    for t, r in zip(ins, gj):
+        close(t.grad, r, 1e-3, 1e-4)
 
 
 def test_ssd_chunked_gradients_stay_finite_when_the_decay_overflows():
@@ -374,7 +385,7 @@ def test_mamba2_forward_routes_through_the_ssd_block(monkeypatch, s):
     with torch.inference_mode():
         tssm.mamba2_forward(tssm.Mamba2(cfg), cfg,
                             torch.zeros(1, s, cfg.d_model))
-    assert calls == ([{"plain": False}] if s % cfg.ssm_chunk == 0 else [])
+    assert calls == ([{}] if s % cfg.ssm_chunk == 0 else [])
 
 
 # ---------------------------------------------------------------------- #
