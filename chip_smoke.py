@@ -7,8 +7,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. device           CUDA required; TF32 off; the card's name and power limit.
 2. build            nvcc builds every kernel from src/repro_torch/kernels/csrc,
-                    one nvcc per source, all started together; for the two
-                    tensor-core kernels (flash_attention, ssd_chunk):
+                    one nvcc per source, all started together; for the
+                    tensor-core kernels (flash_attention, ssd_chunk,
+                    ssd_state):
                     registers and spills of each bf16 instance, ptxas's
                     notes on wgmma, and the HGMMA (wgmma) instructions in
                     the library's SASS (`cuobjdump -sass` beside nvcc): a
@@ -86,6 +87,20 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     layout, b and c whole: each within the tolerances,
                     whether `dense_if_unaligned` copied x, b or c, and
                     device time per call beside the bound.
+                    The chunked SSD's autograd Function (all four steps:
+                    the block's kernels and the state passes', forward and
+                    backward) against plain autograd of the same function
+                    in float32 (`_ssd_chunked_plain`: rounded to bf16 where
+                    the kernels round, the gradients passed through those
+                    roundings unrounded) at the sweep's chunks and every
+                    (P, N), and at mamba2-780m's prefill shape on 48, 24,
+                    12 and 3 heads with and without an initial state, bf16
+                    and float32 (`chunked`): every gradient within
+                    SSD_BWD_TOL, bit-equal run to run; the block's
+                    backward alone and the state passes (`state_train`,
+                    `state_zamba2`) timed at the train shapes from CUDA
+                    graphs over inputs beyond L2, beside their bounds and
+                    the plain steps' forward and plain autograd.
 14. ssm_model_vs_cpu
                     reduced mamba2-780m and zamba2-1.2b, the same weights on
                     the card (kernel path) and on the CPU (plain path):
@@ -194,16 +209,20 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     decoder self- and cross-attention; 144), decode on the
                     direct path.
 30. train_families  `repro_torch.launch.train` 3 steps each, bf16 compute,
-                    fp32 masters, AdamW, remat: mamba2-780m and zamba2-1.2b
-                    at 2 x 1024, paligemma-3b at 2 x (256 + 512), whisper-
+                    fp32 masters, AdamW, remat: mamba2-780m at 2 x 4096 and
+                    zamba2-1.2b at 2 x 1024, paligemma-3b at 2 x (256 + 512), whisper-
                     medium at 2 x (1500 + 448), all uncut, and
                     qwen2-moe-a2.7b at full width with 4 of 24 layers
                     (stated in `reduced`): finite losses, the MoE aux term
                     (total - token loss), step seconds, tokens/s, peak
-                    memory; no kernel launched (autograd takes the plain
-                    paths; the counts are printed). The supervisor's
-                    checkpoint writes are recorded, not made (phases 9 and
-                    17 measure them).
+                    memory; attention under autograd takes its plain
+                    path, the chunked SSD its kernels: per Mamba2 layer a
+                    step, the block's and the state passes' forward twice
+                    (remat) and their backward once (mamba2-780m: 96 / 48
+                    each; zamba2-1.2b 76 / 38), and no plain
+                    version of any of the SSD's four steps runs.  The
+                    supervisor's checkpoint writes are recorded, not made
+                    (phases 9 and 17 measure them).
 31. train_families_vs_cpu
                     reduced configs of the five families, 2 train steps
                     from the same weights on the card and on the CPU:
@@ -227,8 +246,11 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     local tensors, prefill positions/s and decode tokens/s
                     of both; the same for mamba2-780m (2 x 512 tokens) and
                     zamba2-1.2b (2 x 256), 8 new tokens, through the placed
-                    Mamba2 mixer: the SSD kernel 48 and 38 launches per
-                    prefill, flash 6 for zamba2; gemma2-2b's two train steps
+                    Mamba2 mixer: the SSD kernel and the state passes' 48
+                    and 38 launches per prefill, flash 6 for zamba2; the
+                    mamba2 step launches the SSD's forward kernels 96 and
+                    its backward kernels 48 times on both paths;
+                    gemma2-2b's two train steps
                     and one mamba2-780m step of 2 x 512 through
                     `launch.train.run` on the mesh (FSDP+TP placements)
                     against the plain launch within TRAIN_LOSS_RTOL; the
@@ -465,14 +487,17 @@ WGMMA_INSTANCES = {
     "flash_attention": [(r"flash_fwd_bf16ILi(\d+)E", "D={}")],
     "ssd_chunk": [(r"ssd_chunk_bf16ILi(\d+)ELi(\d+)E", "P={},N={}"),
                   (r"ssd_bwd_dx_bf16ILi(\d+)ELi(\d+)E", "bwd_dx P={},N={}"),
-                  (r"ssd_bwd_ds_bf16ILi(\d+)ELi(\d+)E", "bwd_ds P={},N={}")]}
+                  (r"ssd_bwd_ds_bf16ILi(\d+)ELi(\d+)E", "bwd_ds P={},N={}")],
+    "ssd_state": [(r"ssd_readout_bf16ILi(\d+)ELi(\d+)E", "readout P={},N={}"),
+                  (r"ssd_state_grads_bf16ILi(\d+)ELi(\d+)E",
+                   "grads P={},N={}")]}
 
 
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
-    names = ("flash_attention", "chunk_accum", "ssd_chunk")
+    names = ("flash_attention", "chunk_accum", "ssd_chunk", "ssd_state")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         built = list(pool.map(lambda n: build.build(n, force=True), names))
@@ -1288,6 +1313,11 @@ def phase_ssd_vs_plain(seed: int) -> dict:
     res.update(backward=_ssd_bwd_cases(gen, shapes, pns),
                backward_train=_ssd_bwd_time(gen, SSD_TRAIN),
                backward_zamba2=_ssd_bwd_time(gen, SSD_TRAIN_ZAMBA2))
+    # steps 3 and 4: the state kernels' times at the train shapes, and the
+    # Function of all four steps on every head count, with an initial state
+    res.update(state_train=_ssd_state_time(gen, SSD_TRAIN),
+               state_zamba2=_ssd_state_time(gen, SSD_TRAIN_ZAMBA2),
+               chunked=_ssd_chunked_cases(gen))
     emit("ssd_vs_plain", **res)
     torch.cuda.empty_cache()
     return res
@@ -1389,36 +1419,97 @@ def _ssd_plain(x, dt, a, b, c, q) -> tuple:
     return y.transpose(1, 2), st.transpose(1, 2)
 
 
-def _ssd_grads(x, dt, a, b, c, q, dy, dst, plain: bool) -> list:
-    """The gradients of x, dt, a, b, c given dy and dstates: through the
-    kernels' autograd Function, or (plain) autograd of the plain version.
+def _st_round(t, dtype):
+    """t's value rounded to dtype, its gradient passed through unrounded."""
+    return t + (t.to(dtype).to(t.dtype) - t).detach()
+
+
+def _ssd_chunked_plain(x, dt, a, b, c, q, init=None) -> tuple:
+    """All four steps of the chunked SSD, plain (`_ssd_plain` for steps 1
+    and 2; steps 3 and 4 as `models/ssm.py` ran them before the state
+    kernels), in float32 with the values rounded to x's dtype where the
+    kernels round them (the entering states, the state decay, the
+    read-out, y) and the gradients passed through those roundings in
+    float32: the function the kernels compute, under autograd without
+    bf16 gradients.  Autograd of the model's own bf16 ops rounds d(state
+    decay) and d(entering) to bf16, and scatters ddt by ~5e-4 of its size
+    on its own (a CPU run of both at 1 x 1024 x 4 heads).  c is cast to
+    float32 once for all four steps, so its gradient is rounded once, as
+    the kernels round dc."""
+    cdt = x.dtype
+    c = c.float()
+    y_diag, states = _ssd_plain(x, dt, a, b, c, q)
+    bs, s, h, p = x.shape
+    n, l = b.shape[-1], s // q
+    da_cs = torch.cumsum((dt * a).reshape(bs, l, q, h), dim=2)
+    decay = torch.exp(da_cs[:, :, -1, :])
+    carry = init.float() if init is not None else \
+        torch.zeros((bs, h, p, n), device=x.device)
+    entering = []
+    for i in range(l):
+        entering.append(_st_round(carry, cdt))
+        carry = carry * decay[:, i, :, None, None] + states[:, i]
+    entering = torch.stack(entering, dim=1)
+    sd = _st_round(torch.exp(da_cs), cdt)
+    y_off = _st_round(torch.einsum("blqn,blhpn->blqhp",
+                                   c.reshape(bs, l, q, n), entering)
+                      * sd[..., None], cdt)
+    return _st_round(y_diag.float() + y_off.reshape(bs, s, h, p), cdt), carry
+
+
+def _ssd_grads(x, dt, a, b, c, q, dy, dfin, plain: bool,
+               init=None) -> tuple:
+    """(the gradients of x, dt, a, b, c (and init), the outputs [y, final
+    state]) given dy and the final state's gradient: through the chunked
+    SSD's autograd Function, or (plain) autograd of `_ssd_chunked_plain`.
     The leaves keep the inputs' strides (a head slice stays one)."""
-    from repro_torch.kernels import ssd_chunk_intra_bshp
+    from repro_torch.kernels import ssd_chunked_bshp
     ins = [t.detach().requires_grad_() for t in (x, dt, a, b, c)]
-    y, st = (_ssd_plain if plain else ssd_chunk_intra_bshp)(*ins, q)
-    torch.autograd.backward((y, st), (dy, dst))
-    return [t.grad for t in ins]
+    il = None if init is None else init.detach().requires_grad_()
+    y, fin = (_ssd_chunked_plain if plain else ssd_chunked_bshp)(*ins, q, il)
+    torch.autograd.backward((y, fin), (dy, dfin))
+    return ([t.grad for t in ins] + ([il.grad] if il is not None else []),
+            [y.detach(), fin.detach()])
+
+
+def _rel_err(g, r) -> float:
+    """g's largest error over r's largest magnitude."""
+    return ((g.float() - r.float()).abs().max()
+            / r.float().abs().max().clamp_min(1e-30)).item()
 
 
 def _grad_errs(got, ref) -> dict:
-    """Each gradient's largest error over its largest magnitude."""
-    return {name: ((g.float() - r.float()).abs().max()
-                   / r.float().abs().max().clamp_min(1e-30)).item()
-            for name, g, r in zip(GRAD_NAMES, got, ref)}
+    """Each gradient's largest error over its largest magnitude (dinit,
+    the initial state's, where there is one)."""
+    return {name: _rel_err(g, r)
+            for name, g, r in zip(GRAD_NAMES + ("dinit",), got, ref)}
+
+
+def _out_errs(got, ref, dtype) -> tuple:
+    """({"y", "final"}: each output's largest error over its largest
+    magnitude, whether both are within bounds): y within one rounding of
+    its dtype (dx's tolerance: 2**-7 for bf16), the float32 final state
+    within 1e-5."""
+    errs = dict(y=_rel_err(got[0], ref[0]), final=_rel_err(got[1], ref[1]))
+    return errs, (errs["y"] <= SSD_BWD_TOL[dtype]["dx"]
+                  and errs["final"] <= 1e-5)
 
 
 def _ssd_bwd_inputs(gen, b, s, h, p, n, q, dtype):
+    """The inputs, dy and the final state's gradient dfin [B,H,P,N]."""
     x, dt, a, bb, cc = _ssd_inputs(gen, b, s, h, p, n, dtype)
     dy = torch.randn(b, s, h, p, generator=gen, device=DEV).to(dtype)
-    dst = torch.randn(b, s // q, h, p, n, generator=gen, device=DEV)
-    return (x, dt, a, bb, cc), dy, dst
+    dfin = torch.randn(b, h, p, n, generator=gen, device=DEV)
+    return (x, dt, a, bb, cc), dy, dfin
 
 
 def _ssd_bwd_cases(gen, shapes, pns) -> dict:
-    """The backward kernel against plain autograd in both dtypes at the
-    forward sweep's chunks (whole, ragged, one row) and every (P, N), on
-    the model's layout (b, c shared, G = 1); G = H through the heads
-    layout against the plain backward; a chunk whose decay overflows
+    """The backward kernels (the chunked SSD's autograd Function: the state
+    passes' and the block's) against plain autograd of all four steps
+    (`_ssd_chunked_plain`) in both dtypes at the forward sweep's chunks
+    (whole, ragged, one row) and every (P, N), on the model's layout (b, c
+    shared, G = 1); the block's backward with G = H through the heads
+    layout against its plain backward; a chunk whose decay overflows
     float32's exp; and each case run twice, bit-equal."""
     from repro_torch.kernels import ssd_chunk_intra_bwd_heads
     from repro_torch.kernels.ref import ssd_chunk_intra_bwd_reference
@@ -1427,12 +1518,13 @@ def _ssd_bwd_cases(gen, shapes, pns) -> dict:
         tol = SSD_BWD_TOL[dtype]
         worst[str(dtype)[6:]] = dict.fromkeys(GRAD_NAMES, 0.0)
         for q, p, n in shapes:
-            ins, dy, dst = _ssd_bwd_inputs(gen, 2, 2 * q, 3, p, n, q, dtype)
+            ins, dy, dfin = _ssd_bwd_inputs(gen, 2, 2 * q, 3, p, n, q,
+                                            dtype)
             if (q, p, n) == (64, 64, 64):     # cum over -300: exp overflows
                 ins = (ins[0], ins[1] + 1.0, ins[2] * 20.0) + ins[3:]
-            got = _ssd_grads(*ins, q, dy, dst, plain=False)
-            again = _ssd_grads(*ins, q, dy, dst, plain=False)
-            ref = _ssd_grads(*ins, q, dy, dst, plain=True)
+            got, _ = _ssd_grads(*ins, q, dy, dfin, plain=False)
+            again, _ = _ssd_grads(*ins, q, dy, dfin, plain=False)
+            ref, _ = _ssd_grads(*ins, q, dy, dfin, plain=True)
             torch.cuda.synchronize()
             errs = _grad_errs(got, ref)
             cases += 1
@@ -1445,8 +1537,9 @@ def _ssd_bwd_cases(gen, shapes, pns) -> dict:
                 unequal.append((str(dtype), q, p, n))
         # G = H: each head its own b, c, through the heads layout
         for q, p, n in ((64, 32, 64), (129, 64, 128), (512, 64, 128)):
-            (x, dt, a, bb, cc), dy, dst = _ssd_bwd_inputs(
+            (x, dt, a, bb, cc), dy, _ = _ssd_bwd_inputs(
                 gen, 2, 2 * q, 3, p, n, q, dtype)
+            dst = torch.randn(2, 2, 3, p, n, generator=gen, device=DEV)
             bh = torch.randn(2, 3, 2 * q, n, generator=gen,
                              device=DEV).to(dtype)
             ch = torch.randn(2, 3, 2 * q, n, generator=gen,
@@ -1488,29 +1581,38 @@ def _ssd_bwd_bound(m: dict) -> tuple:
 
 
 def _ssd_bwd_time(gen, m: dict, sets: int = 2) -> dict:
-    """The bf16 SSD backward at a train shape, as the model's autograd
-    Function calls it: its gradients against plain autograd, bit-equal
-    run to run; device time per call from a CUDA graph over `sets` input
-    sets (eager in kernel_eager_ms) beside the bound, the plain autograd
+    """The bf16 SSD block's backward at a train shape, as the model's
+    autograd Function calls it: the Function's outputs (y, the final
+    state; `_out_errs`) and gradients (all four steps) against plain
+    autograd of `_ssd_chunked_plain`, bit-equal run to run; the block's
+    backward
+    alone, device time per call from a CUDA graph over `sets` input sets
+    (eager in kernel_eager_ms) beside the bound, the plain autograd
     backward's time and the forward kernel's."""
     from repro_torch.kernels import SSD_BWD_KERNEL, ssd_chunk_intra_bshp
     from repro_torch.kernels.ops import ssd_chunk_intra_bshp_bwd
     sets_in = [_ssd_bwd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
                                m["q"], torch.bfloat16) for _ in range(sets)]
-    ins, dy, dst = sets_in[0]
-    got = _ssd_grads(*ins, m["q"], dy, dst, plain=False)
-    again = _ssd_grads(*ins, m["q"], dy, dst, plain=False)
-    ref = _ssd_grads(*ins, m["q"], dy, dst, plain=True)
+    ins, dy, dfin = sets_in[0]
+    got, outs = _ssd_grads(*ins, m["q"], dy, dfin, plain=False)
+    again, outs_again = _ssd_grads(*ins, m["q"], dy, dfin, plain=False)
+    ref, outs_ref = _ssd_grads(*ins, m["q"], dy, dfin, plain=True)
     errs = _grad_errs(got, ref)
+    out_errs, out_ok = _out_errs(outs, outs_ref, torch.bfloat16)
     tol = SSD_BWD_TOL[torch.bfloat16]
     assert all(errs[k] <= tol[k] for k in GRAD_NAMES), (m, errs)
-    same = all(torch.equal(g, h) for g, h in zip(got, again))
+    assert out_ok, (m, out_errs)
+    same = all(torch.equal(g, h) for g, h in zip(got + outs,
+                                                 again + outs_again))
     assert same, m
-    del got, again, ref
+    del got, again, ref, outs, outs_again, outs_ref
 
-    # the backward alone, as the autograd Function runs it
+    # the block's backward alone, as the autograd Function runs it
+    dsts = [torch.randn(m["b"], m["s"] // m["q"], m["h"], m["p"], m["n"],
+                        generator=gen, device=DEV) for _ in range(sets)]
+
     def kernel():
-        for ins, dy, dst in sets_in:
+        for (ins, dy, _), dst in zip(sets_in, dsts):
             ssd_chunk_intra_bshp_bwd(*ins, dy, dst, m["q"])
 
     before = SSD_BWD_KERNEL.launches
@@ -1524,17 +1626,18 @@ def _ssd_bwd_time(gen, m: dict, sets: int = 2) -> dict:
             ssd_chunk_intra_bshp(*ins, m["q"])
     fwd_ms = graph_ms(forward, sets)
     # plain autograd: the graph of the plain version, its backward timed
-    ins, dy, dst = sets_in[0]
+    ins, dy, _ = sets_in[0]
     leaves = [t.detach().requires_grad_() for t in ins]
     outs = _ssd_plain(*leaves, m["q"])
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
-        outs, leaves, (dy, dst), retain_graph=True), iters=3, warmup=1)
+        outs, leaves, (dy, dsts[0]), retain_graph=True), iters=3, warmup=1)
     del outs, leaves
     flops, nbytes, bound = _ssd_bwd_bound(m)
     bound_by = max(bound, key=bound.get)
     torch.cuda.empty_cache()
     return dict(shape=m, dtype="bfloat16", grad_errs=errs,
-                bit_equal_run_to_run=same, kernel_ms=kernel_ms,
+                out_errs=out_errs, bit_equal_run_to_run=same,
+                kernel_ms=kernel_ms,
                 kernel_eager_ms=eager_ms, plain_autograd_ms=plain_ms,
                 forward_kernel_ms=fwd_ms, launches_timed=launches,
                 timing=f"kernel_ms: device time per backward call (the "
@@ -1544,6 +1647,158 @@ def _ssd_bwd_time(gen, m: dict, sets: int = 2) -> dict:
                 bound_ms=bound[bound_by], bound_by=bound_by, flops=flops,
                 bytes=nbytes, tflops=flops / kernel_ms / 1e9,
                 bound_fraction=bound[bound_by] / kernel_ms)
+
+
+def _ssd_state_bound(m: dict) -> dict:
+    """Bytes, FLOPs and the least ms of the state kernels at shape m, bf16.
+    Forward: the float32 states read, y_diag read and y written, the
+    float32 carries and the bf16 entering states written, c and dt read,
+    cs written; the read-out's products 2 B S H P N.  Backward: dy, the
+    carries, the entering states, c and cs read, the float32 dstates, dcs
+    and dc written; dE's and dy E's products, 4 B S H P N."""
+    bh, s, p, n = m["b"] * m["h"], m["s"], m["p"], m["n"]
+    st = 4 * bh * (s // m["q"]) * p * n
+    fwd = st + 2 * 2 * bh * s * p + st + st // 2 + 2 * m["b"] * s * n \
+        + 2 * 4 * bh * s
+    bwd = 2 * bh * s * p + st + st // 2 + 2 * m["b"] * s * n + 4 * bh * s \
+        + st + 4 * bh * s + 4 * m["b"] * s * n
+    out = {}
+    for name, nbytes, flops in (("forward", fwd, 2 * bh * s * p * n),
+                                ("backward", bwd, 4 * bh * s * p * n)):
+        bound = {"bytes": nbytes / PEAK_BYTES * 1e3,
+                 "operations": flops / PEAK_BF16_FLOPS * 1e3}
+        by = max(bound, key=bound.get)
+        out[name] = dict(bytes=nbytes, flops=flops, bound_ms=bound[by],
+                         bound_by=by)
+    return out
+
+
+def _ssd_state_time(gen, m: dict, sets: int = 2) -> dict:
+    """Steps 3 and 4's kernels at a train shape, bf16, as the autograd
+    Function calls them: device time per call of the forward (the state
+    pass and the read-out) and of the backward (the products and the
+    walk) from a CUDA graph over `sets` input sets (each beyond L2; eager
+    in *_eager_ms), beside their bytes bounds, the plain steps' forward and
+    their backward under plain autograd, and the launches counted."""
+    from repro_torch.kernels import SSD_STATE_BWD_KERNEL, SSD_STATE_KERNEL
+    from repro_torch.kernels.ref import ssd_state_reference
+    from repro_torch.kernels.ssd_state import (ssd_state_bwd_heads,
+                                               ssd_state_heads)
+    bs, s, h, p, n, q = (m[k] for k in "bshpnq")
+    sets_in = []
+    for _ in range(sets):
+        x, dt, a, _, c = _ssd_inputs(gen, bs, s, h, p, n, torch.bfloat16)
+        y = torch.randn(bs, s, h, p, generator=gen,
+                        device=DEV).to(torch.bfloat16)
+        st = torch.randn(bs, s // q, h, p, n, generator=gen, device=DEV)
+        dy = torch.randn(bs, s, h, p, generator=gen,
+                         device=DEV).to(torch.bfloat16)
+        sets_in.append((y, st, dt, a, c, dy))
+
+    def views(y, st, dt, a, c):
+        return (y.transpose(1, 2), st.transpose(1, 2), dt.transpose(1, 2),
+                a.expand(bs, h), c[:, None])
+
+    def forward():
+        for y, st, dt, a, c, _ in sets_in:
+            ssd_state_heads(*views(y, st, dt, a, c), q)
+    saved = [ssd_state_heads(*views(*t[:5]), q)[1:] + (t[5], t[4])
+             for t in sets_in]
+
+    def backward():
+        for ent, car, cs, dy, c in saved:
+            ssd_state_bwd_heads(dy.transpose(1, 2), None, car, ent, cs,
+                                c[:, None], q)
+    before = SSD_STATE_KERNEL.launches, SSD_STATE_BWD_KERNEL.launches
+    res = {}
+    for name, fn in (("forward", forward), ("backward", backward)):
+        kernel_ms = graph_ms(fn, sets)
+        eager_ms = cuda_ms(fn, iters=5) / sets
+        res[name] = dict(kernel_ms=(kernel_ms + graph_ms(fn, sets)) / 2,
+                         kernel_eager_ms=eager_ms)
+    launches = (SSD_STATE_KERNEL.launches - before[0],
+                SSD_STATE_BWD_KERNEL.launches - before[1])
+    # the plain steps (`ref.ssd_state_reference`, the ops `models/ssm.py`
+    # ran before the state kernels): the forward eager, the backward under
+    # autograd
+    y, st, dt, a, c, dy = sets_in[0]
+    res["forward"]["plain_ms"] = cuda_ms(
+        lambda: ssd_state_reference(*views(y, st, dt, a, c), q), iters=5,
+        warmup=1)
+    leaves = [t.detach().requires_grad_() for t in (y, st, dt, c)]
+    outs = ssd_state_reference(*views(*leaves[:3], a, leaves[3]), q)[:2]
+    dfin = torch.zeros_like(outs[1])
+    res["backward"]["plain_autograd_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(outs, leaves, (dy.transpose(1, 2),
+                                                   dfin),
+                                    retain_graph=True), iters=3, warmup=1)
+    del outs, leaves, saved
+    for name, b in _ssd_state_bound(m).items():
+        res[name].update(b, bound_fraction=b["bound_ms"]
+                         / res[name]["kernel_ms"])
+    torch.cuda.empty_cache()
+    return dict(shape=m, dtype="bfloat16", launches_timed=launches,
+                timing=f"kernel_ms: device time per call, CUDA graph of "
+                       f"{sets} calls on {sets} input sets; eager and plain: "
+                       f"eager calls", **res)
+
+
+def _ssd_chunked_cases(gen) -> dict:
+    """All four steps' autograd Function (the SSD block's kernels and the
+    state kernels, forward and backward) at mamba2-780m's prefill shape
+    against plain autograd of `_ssd_chunked_plain`: bf16 and float32, on
+    all 48 heads and on the last rank's 24, 12 and 3 of them (head-slice
+    views, b and c whole), with and without an initial state; y within
+    dx's tolerance and the final state within 1e-5 (each error over the
+    output's largest magnitude), every gradient within SSD_BWD_TOL (dinit
+    within dc's), each case run twice, bit-equal."""
+    m = SSD_MAIN
+    worst, failures, unequal, cases = {}, [], [], 0
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = SSD_BWD_TOL[dtype]
+        key = str(dtype)[6:]
+        worst[key] = dict.fromkeys(GRAD_NAMES + ("dinit", "y", "final"), 0.0)
+        full, dy_full, dfin_full = _ssd_bwd_inputs(
+            gen, m["b"], m["s"], m["h"], m["p"], m["n"], m["q"], dtype)
+        init_full = torch.randn(m["b"], m["h"], m["p"], m["n"],
+                                generator=gen, device=DEV)
+        for hl in (48,) + SSD_LOCAL_HEADS:
+            heads = slice(m["h"] - hl, m["h"])
+            x, dt, a, b, c = full
+            ins = (x[:, :, heads], dt[:, :, heads], a[heads], b, c)
+            dy, dfin = dy_full[:, :, heads], dfin_full[:, heads]
+            for init in (None, init_full[:, heads]):
+                got, outs = _ssd_grads(*ins, m["q"], dy, dfin, False, init)
+                again, outs_again = _ssd_grads(*ins, m["q"], dy, dfin,
+                                               False, init)
+                ref, outs_ref = _ssd_grads(*ins, m["q"], dy, dfin, True,
+                                           init)
+                torch.cuda.synchronize()
+                errs = _grad_errs(got, ref)
+                fwd, fwd_ok = _out_errs(outs, outs_ref, dtype)
+                errs.update(fwd)
+                cases += 1
+                for k, v in errs.items():
+                    worst[key][k] = max(worst[key][k], v)
+                if not fwd_ok or not all(torch.isfinite(g).all()
+                                         for g in got) or \
+                        any(errs[k] > tol[k] for k in GRAD_NAMES) or \
+                        (init is not None and errs["dinit"] > tol["dc"]):
+                    failures.append((key, hl, init is not None, errs))
+                if not all(torch.equal(g, h) for g, h in
+                           zip(got + outs, again + outs_again)):
+                    unequal.append((key, hl, init is not None))
+                del got, again, ref, outs, outs_again, outs_ref
+        del full, dy_full, dfin_full
+        torch.cuda.empty_cache()
+    assert not failures, f"chunked SSD Function disagrees with plain " \
+        f"autograd: {failures}"
+    assert not unequal, f"chunked SSD Function not bit-equal run to run: " \
+        f"{unequal}"
+    return dict(cases=cases, heads=(48,) + SSD_LOCAL_HEADS,
+                with_init=(False, True), worst=worst,
+                tol={str(k)[6:]: v for k, v in SSD_BWD_TOL.items()},
+                dinit_tol="dc's", bit_equal_run_to_run=True)
 
 
 # mamba2-780m's 48 heads over a model axis of 2, 4 and 16 (the placed
@@ -1588,11 +1843,12 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
             assert ok, (hl, layout, err)
             dy = torch.randn(inputs[0][0].shape, generator=gen,
                              device=DEV).to(torch.bfloat16)
-            dst = torch.randn(m["b"], m["s"] // m["q"], hl, m["p"], m["n"],
-                              generator=gen, device=DEV)
-            got = _ssd_grads(*inputs[0], m["q"], dy, dst, plain=False)
-            again = _ssd_grads(*inputs[0], m["q"], dy, dst, plain=False)
-            ref = _ssd_grads(*inputs[0], m["q"], dy, dst, plain=True)
+            dfin = torch.randn(m["b"], hl, m["p"], m["n"], generator=gen,
+                               device=DEV)
+            got, _ = _ssd_grads(*inputs[0], m["q"], dy, dfin, plain=False)
+            again, _ = _ssd_grads(*inputs[0], m["q"], dy, dfin,
+                                  plain=False)
+            ref, _ = _ssd_grads(*inputs[0], m["q"], dy, dfin, plain=True)
             bwd_errs = _grad_errs(got, ref)
             tol = SSD_BWD_TOL[torch.bfloat16]
             assert all(torch.isfinite(g).all() for g in got) and all(
@@ -1600,7 +1856,7 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
                 (hl, layout, bwd_errs)
             bwd_same = all(torch.equal(g, h) for g, h in zip(got, again))
             assert bwd_same, (hl, layout)
-            del got, again, ref, dy, dst
+            del got, again, ref, dy, dfin
             x, _, _, b, c = inputs[0]
             kv = (x.transpose(1, 2), b[:, None], c[:, None])
             copied = [n for n, t, d in zip("xbc", kv, dense_if_unaligned(*kv))
@@ -2584,22 +2840,33 @@ class _SkipCheckpointWrites:
 def phase_train_families(seed: int) -> dict:
     """`launch.train.run` of each family at full width, 3 steps, with
     every kernel's launches a step: under autograd attention takes its
-    plain path, the SSD block its kernels (the forward twice a Mamba2
-    layer with remat, the backward once), and no plain SSD block runs."""
+    plain path, the chunked SSD its kernels (the block's and the state
+    passes' forward twice a Mamba2 layer with remat, their backward once),
+    and no plain version of any of its four steps runs."""
     import repro_torch.configs as configs
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
-                                     SSD_BWD_KERNEL, SSD_KERNEL, ssd_scan)
+                                     SSD_BWD_KERNEL, SSD_KERNEL,
+                                     SSD_STATE_BWD_KERNEL, SSD_STATE_KERNEL,
+                                     ssd_scan, ssd_state)
     from repro_torch.launch import train as launch_train
     kernels = {"flash_attention": FLASH_KERNEL, "ssd_chunk": SSD_KERNEL,
-               "ssd_chunk_bwd": SSD_BWD_KERNEL,
+               "ssd_chunk_bwd": SSD_BWD_KERNEL, "ssd_state": SSD_STATE_KERNEL,
+               "ssd_state_bwd": SSD_STATE_BWD_KERNEL,
                "chunk_accum": CHUNK_ACCUM_KERNEL}
     get_config = configs.get_config
-    plain_ssd = ssd_scan.ssd_chunk_intra_heads_reference
+    # the plain versions of all four steps, forward and backward: none runs
+    plain = [(ssd_scan, "ssd_chunk_intra_heads_reference"),
+             (ssd_scan, "ssd_chunk_intra_bwd_reference"),
+             (ssd_state, "ssd_state_reference"),
+             (ssd_state, "ssd_state_bwd_reference")]
+    originals = [getattr(mod, name) for mod, name in plain]
     plain_calls = []
 
-    def counted(*args, **kw):
-        plain_calls.append(1)
-        return plain_ssd(*args, **kw)
+    def counting(fn):
+        def counted(*args, **kw):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kw)
+        return counted
     out, launches = {}, {k: 0 for k in kernels}
     for name, batch, seq, layers in TRAIN_FAMILIES:
         full = get_config(name)
@@ -2611,7 +2878,8 @@ def phase_train_families(seed: int) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         configs.get_config = lambda n: cfg if n == name else get_config(n)
-        ssd_scan.ssd_chunk_intra_heads_reference = counted
+        for (mod, attr), fn in zip(plain, originals):
+            setattr(mod, attr, counting(fn))
         plain_calls.clear()
         before = {k: kn.launches for k, kn in kernels.items()}
         t0 = time.perf_counter()
@@ -2626,7 +2894,8 @@ def phase_train_families(seed: int) -> dict:
             del keep
         finally:
             configs.get_config = get_config
-            ssd_scan.ssd_chunk_intra_heads_reference = plain_ssd
+            for (mod, attr), fn in zip(plain, originals):
+                setattr(mod, attr, fn)
             shutil.rmtree(ckpt, ignore_errors=True)
         wall = time.perf_counter() - t0
         per_step = {k: (kn.launches - before[k]) / len(records)
@@ -2635,7 +2904,8 @@ def phase_train_families(seed: int) -> dict:
             launches[k] += kernels[k].launches - before[k]
         mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
         assert per_step == {"flash_attention": 0, "ssd_chunk": 2 * mamba,
-                            "ssd_chunk_bwd": mamba, "chunk_accum": 0}, \
+                            "ssd_chunk_bwd": mamba, "ssd_state": 2 * mamba,
+                            "ssd_state_bwd": mamba, "chunk_accum": 0}, \
             (name, per_step)
         assert not plain_calls, (name, len(plain_calls))
         losses = [r["loss"] for r in records]
@@ -2894,14 +3164,16 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
-                                     SSD_BWD_KERNEL, SSD_KERNEL)
+                                     SSD_BWD_KERNEL, SSD_KERNEL,
+                                     SSD_STATE_BWD_KERNEL, SSD_STATE_KERNEL)
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.models.hybrid import num_shared_sites
     kernels = {"flash_attention": FLASH_KERNEL,
                "chunk_accum": CHUNK_ACCUM_KERNEL, "ssd_chunk": SSD_KERNEL,
-               "ssd_chunk_bwd": SSD_BWD_KERNEL}
+               "ssd_chunk_bwd": SSD_BWD_KERNEL, "ssd_state": SSD_STATE_KERNEL,
+               "ssd_state_bwd": SSD_STATE_BWD_KERNEL}
     if DEV == "cuda":
         torch.cuda.set_device(0)
     dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
@@ -2922,7 +3194,8 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
         for path in served["serve"]:  # flash once per layer per prefill
             assert served["serve"][path]["launches"] == {
                 "flash_attention": cfg.num_layers * batches,
-                "chunk_accum": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0}, path
+                "chunk_accum": 0, "ssd_chunk": 0, "ssd_chunk_bwd": 0,
+                "ssd_state": 0, "ssd_state_bwd": 0}, path
 
         train = _train_both(
             ["--arch", "gemma2-2b", "--steps", str(MESH1_TRAIN_STEPS),
@@ -2946,7 +3219,8 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
             for path in both["serve"]:
                 assert both["serve"][path]["launches"] == {
                     "flash_attention": sites, "chunk_accum": 0,
-                    "ssd_chunk": scfg.num_layers, "ssd_chunk_bwd": 0}, \
+                    "ssd_chunk": scfg.num_layers, "ssd_chunk_bwd": 0,
+                    "ssd_state": scfg.num_layers, "ssd_state_bwd": 0}, \
                     (name, path)
             ssm[name] = dict(layers=scfg.num_layers, d_model=scfg.d_model,
                              ssm_chunk=scfg.ssm_chunk, prompts=list(plens),
@@ -2955,14 +3229,17 @@ def phase_model_parallel_mesh1(seed: int) -> dict:
                              flash_launches_per_prefill=sites, **both)
         ssm_train = _train_both(MESH1_SSM_TRAIN + ["--device", DEV, "--seed",
                                                    str(seed)], mesh, kernels)
-        # a step with remat: the SSD forward twice a Mamba2 layer (forward
-        # and recomputation), the backward once, on both paths
+        # a step with remat: the SSD's forward kernels twice a Mamba2
+        # layer (forward and recomputation), its backward kernels once, on
+        # both paths
         layers = get_config(MESH1_SSM_TRAIN[1]).num_layers
         steps = int(MESH1_SSM_TRAIN[MESH1_SSM_TRAIN.index("--steps") + 1])
         for path in ("plain", "mesh"):
             got = ssm_train[path]["launches"]
-            assert (got["ssd_chunk"], got["ssd_chunk_bwd"]) == (
-                2 * layers * steps, layers * steps), (path, got)
+            assert (got["ssd_chunk"], got["ssd_chunk_bwd"], got["ssd_state"],
+                    got["ssd_state_bwd"]) == (
+                2 * layers * steps, layers * steps, 2 * layers * steps,
+                layers * steps), (path, got)
     finally:
         dist.destroy_process_group()
     res = dict(mesh={"data": 1, "model": 1},
@@ -3088,12 +3365,14 @@ DRYRUN_CARDS = [("qwen3-8b", "train_4k", "off"),
 # the dry run's CLI, then the launches this process made
 _DRYRUN_CHILD = """
 import json, sys
-from repro_torch.kernels import CHUNK_ACCUM_KERNEL, FLASH_KERNEL, SSD_KERNEL
+from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
+                                 SSD_KERNEL, SSD_STATE_KERNEL)
 from repro_torch.launch import dryrun
 rc = dryrun.main(sys.argv[1:])
 print(json.dumps({"launches": {"flash_attention": FLASH_KERNEL.launches,
                                "chunk_accum": CHUNK_ACCUM_KERNEL.launches,
-                               "ssd_chunk": SSD_KERNEL.launches}}))
+                               "ssd_chunk": SSD_KERNEL.launches,
+                               "ssd_state": SSD_STATE_KERNEL.launches}}))
 sys.exit(rc)
 """
 
@@ -3220,13 +3499,14 @@ def phase_roofline_measured(seed: int) -> dict:
     from repro_torch.analysis.roofline import model_flops_for
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
-                                     SSD_KERNEL)
+                                     SSD_KERNEL, SSD_STATE_KERNEL)
     from repro_torch.models import build_model
     from repro_torch.train import (AdamWConfig, DataConfig, TrainConfig,
                                    host_batch_slice, init_train_state,
                                    make_train_step)
     kernels = {"flash_attention": FLASH_KERNEL,
-               "chunk_accum": CHUNK_ACCUM_KERNEL, "ssd_chunk": SSD_KERNEL}
+               "chunk_accum": CHUNK_ACCUM_KERNEL, "ssd_chunk": SSD_KERNEL,
+               "ssd_state": SSD_STATE_KERNEL}
     for k in kernels.values():
         k.launches = 0
     rows = []
@@ -3283,7 +3563,8 @@ def phase_roofline_measured(seed: int) -> dict:
     del params, opt
     torch.cuda.empty_cache()
     launches = {n: k.launches for n, k in kernels.items()}
-    assert launches["chunk_accum"] == launches["ssd_chunk"] == 0
+    assert launches["chunk_accum"] == launches["ssd_chunk"] == \
+        launches["ssd_state"] == 0
     res = dict(rows=rows, launches=launches, losses=losses,
                peak_flops_bf16=PEAK_BF16_FLOPS, hbm_bw=PEAK_BYTES)
     emit("roofline_measured", **res)
@@ -3414,7 +3695,8 @@ def main() -> int:
                                     serve_audio=audio["flash_launches"])
     for name, n in fam_train["launches"].items():
         paths.setdefault(name, {})["train_families"] = n
-    for name in ("flash_attention", "chunk_accum", "ssd_chunk"):
+    for name in ("flash_attention", "chunk_accum", "ssd_chunk", "ssd_state"):
+        paths.setdefault(name, {})
         paths[name]["model_parallel_mesh1"] = \
             mesh1["serve"]["mesh"]["launches"][name]
         paths[name]["model_parallel_mesh1_train"] = \
@@ -3428,8 +3710,9 @@ def main() -> int:
                                           for c in dry["cells"])
         paths[name]["roofline_measured"] = measured["launches"][name]
     for cell in ("train", "ssm_train"):
-        paths["ssd_chunk_bwd"][f"model_parallel_mesh1_{cell}"] = \
-            mesh1[cell]["mesh"]["launches"]["ssd_chunk_bwd"]
+        for name in ("ssd_chunk_bwd", "ssd_state_bwd"):
+            paths[name][f"model_parallel_mesh1_{cell}"] = \
+                mesh1[cell]["mesh"]["launches"][name]
     for name, by_example in examples["launches"].items():
         for example, n in by_example.items():
             paths[name][f"examples_{example}"] = n
@@ -3477,7 +3760,26 @@ def main() -> int:
         "plain_ms": ssd["backward_train"]["plain_autograd_ms"],
         "bound_ms": ssd["backward_train"]["bound_ms"],
         "bound_by": ssd["backward_train"]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_state.cu",
+        "replaces": None,
+        "launches": fam_train["launches"][name],
+        "launches_by_path": paths[name],
+        "max_grad_errs": ssd["chunked"]["worst"]["bfloat16"],
+        "max_out_errs": {
+            "prefill": {k: ssd["chunked"]["worst"]["bfloat16"][k]
+                        for k in ("y", "final")},
+            "train": ssd["backward_train"]["out_errs"],
+            "train_zamba2": ssd["backward_zamba2"]["out_errs"]},
+        "held_against_plain": True,
+        "ms": ssd["state_train"][part]["kernel_ms"],
+        "plain_ms": ssd["state_train"][part].get(
+            "plain_ms", ssd["state_train"][part].get("plain_autograd_ms")),
+        "bound_ms": ssd["state_train"][part]["bound_ms"],
+        "bound_by": ssd["state_train"][part]["bound_by"],
+        "library_ms": None} for name, part in (
+            ("ssd_state", "forward"), ("ssd_state_bwd", "backward"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,10 +7,12 @@
     ssd_chunk        csrc/ssd_chunk.cu        (replaces the Pallas
                      src/repro/kernels/ssd_scan.py; its backward, a
                      second entry point, replaces none)
+    ssd_state        csrc/ssd_state.cu        (steps 3 and 4 of the chunked
+                     SSD, forward and backward; replace no Pallas kernel)
 
 Kernels build with nvcc at first launch (`build.py`), never at import.
-flash_attention and ssd_chunk (forward and backward) run through custom
-ops (`KERNEL_OPS`), each with a fake implementation and a FLOP formula, so
+flash_attention, ssd_chunk and ssd_state (forward and backward) run
+through custom ops (`KERNEL_OPS`), each with a fake implementation and a FLOP formula, so
 fake tensors (the dry run) reach them and `analysis.hlo_count` counts them.
 """
 import torch
@@ -19,7 +21,8 @@ from .chunk_accum import KERNEL as CHUNK_ACCUM_KERNEL  # noqa: F401
 from .chunk_accum import chunk_accum, chunk_accum_indexed  # noqa: F401
 from .flash_attention import KERNEL as FLASH_KERNEL  # noqa: F401
 from .flash_attention import flash_attention  # noqa: F401
-from .ops import flash_attention_bshd, ssd_chunk_intra_bshp  # noqa: F401
+from .ops import (flash_attention_bshd, ssd_chunk_intra_bshp,  # noqa: F401
+                  ssd_chunked_bshp)
 from .ref import (chunk_accum_indexed_reference,  # noqa: F401
                   chunk_accum_reference, mha_reference, ssd_chunk_reference,
                   ssd_chunk_intra_reference)
@@ -27,7 +30,12 @@ from .ssd_scan import BWD_KERNEL as SSD_BWD_KERNEL  # noqa: F401
 from .ssd_scan import KERNEL as SSD_KERNEL  # noqa: F401
 from .ssd_scan import (ssd_chunk_intra, ssd_chunk_intra_bwd_heads,  # noqa
                        ssd_chunk_intra_heads)
+from .ssd_state import STATE_BWD_KERNEL as SSD_STATE_BWD_KERNEL  # noqa: F401
+from .ssd_state import STATE_KERNEL as SSD_STATE_KERNEL  # noqa: F401
+from .ssd_state import ssd_state_bwd_heads, ssd_state_heads  # noqa: F401
 
 KERNEL_OPS = (torch.ops.repro_torch.flash_attention,
               torch.ops.repro_torch.ssd_chunk_intra_heads,
-              torch.ops.repro_torch.ssd_chunk_intra_bwd)
+              torch.ops.repro_torch.ssd_chunk_intra_bwd,
+              torch.ops.repro_torch.ssd_state_fwd,
+              torch.ops.repro_torch.ssd_state_bwd)

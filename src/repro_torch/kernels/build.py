@@ -28,8 +28,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # A library's own flags.  --split-compile=0: ptxas works on the kernels in
 # parallel, one thread a CPU (ssd_chunk.cu's 98 kernels: 86 s in one
-# thread, 31 s split over 8 cores); the other libraries build as before.
-LIBRARY_FLAGS = {"ssd_chunk": ["--split-compile=0"]}
+# thread, 31 s split over 8 cores; ssd_state.cu's 53 likewise); the other
+# libraries build as before.
+LIBRARY_FLAGS = {"ssd_chunk": ["--split-compile=0"],
+                 "ssd_state": ["--split-compile=0"]}
 
 
 def nvcc_flags(name: str) -> list:

@@ -799,13 +799,17 @@ bool rows_aligned(const void* ptr, int64_t sb, int64_t sh, int64_t ss) {
 //   way, each block's own rows only, so dcum needs no atomic.  A dB block
 //   adds the states' term head by head at the end.  The heads of a group
 //   are split over up to MAX_SPLIT_HEADS-head blocks to fill the card;
-//   each split writes its own partial dB, dC, added in order afterwards.
+//   each split writes its own partial dB, dC, added in order afterwards;
+//   split 0's dC starts from the caller's `dc_extra` where it gives one
+//   (c's read-out term from steps 3 and 4, csrc/ssd_state.cu).
 //   dx blocks (`ssd_bwd_dx_*`), one per (batch, head, chunk, key tile j):
 //   (B_j dstates^T) first, then over the query tiles i >= j, S^T = B_j
 //   C_i^T, times L, and dxdt += (S^T o L) dy_i, with g and rowsum(dxdt o
 //   x) on the way.  A finishing pass (`ssd_bwd_finish`) per (batch, head,
-//   chunk) sums dcum's four parts, takes its reverse cumsum in float64 and
-//   writes ddt and da's chunk sums.
+//   chunk) sums dcum's four parts and, where the caller gives them, the
+//   gradients that steps 3 and 4 of the chunked SSD send to their own
+//   cumsum of dt a (`dcum_extra`, csrc/ssd_state.cu), takes the reverse
+//   cumsum of the total in float64 and writes ddt and da's chunk sums.
 // Every sum over heads, tiles or rows runs in a fixed order: the same
 // inputs give bit-equal gradients.  The masks are selects before the exp.
 //
@@ -830,6 +834,8 @@ struct BwdParams {
   float* da;         // [B, H, L]: d(dt a) dt summed over each chunk
   float* part;       // [2, splits, B, G, S, N]: dB, then dC, each split's
   double* rows;      // [4, B, H, S]: kPlus, kMinus, kDecay, kDdtX
+  const float* dcum_extra;   // [B, H, S] added to dcum, or null
+  const float* dc_extra;     // [B, G, S, N] added to split 0's dC, or null
   int batch, groups, seqlen, splits, ndim;
   int64_t dy_sb, dy_sh, dy_ss;
   int64_t dst_sb, dst_sh, dst_sl;
@@ -857,6 +863,14 @@ __device__ __forceinline__ float* part_of(const BwdParams& p, int kind,
                                           int split, int bi, int g) {
   return p.part + ((((int64_t)kind * p.splits + split) * p.batch + bi) *
                        p.groups + g) * p.seqlen * p.ndim;
+}
+
+// dc_extra's [S, N] slice of (batch, group) where a block writes split 0's
+// dC and the caller gives the term, else null
+__device__ __forceinline__ const float* extra_of(const BwdParams& p, int kind,
+                                                 int split, int bi, int g) {
+  if (kind != 1 || split != 0 || p.dc_extra == nullptr) return nullptr;
+  return p.dc_extra + ((int64_t)bi * p.groups + g) * p.seqlen * p.ndim;
 }
 
 // A dS block's share, from blockIdx: grid (B * G, chunks, 2 * row_tiles *
@@ -895,6 +909,9 @@ __global__ void __launch_bounds__(kRuns) ssd_bwd_finish(const BwdParams p) {
   const double* minus = rows_of(p, kMinus, bh, row0);
   const double* dec = rows_of(p, kDecay, bh, row0);
   const double* ddtx = rows_of(p, kDdtX, bh, row0);
+  const float* extra = p.dcum_extra == nullptr
+                           ? nullptr
+                           : p.dcum_extra + (int64_t)bh * p.seqlen + row0;
   const float* dtp = p.f.dt + bi * p.f.dt_sb + hi * p.f.dt_sh + row0 * p.f.dt_ss;
   float* ddt = p.ddt + bi * p.ddt_sb + hi * p.ddt_sh + row0 * p.ddt_ss;
   const float a = p.f.a[bi * p.f.a_sb + hi * p.f.a_sh];
@@ -915,7 +932,8 @@ __global__ void __launch_bounds__(kRuns) ssd_bwd_finish(const BwdParams p) {
   __syncthreads();
 
   auto dcum = [&](int j) {
-    return plus[j] - minus[j] - dec[j] + (j == q - 1 ? dec_total : 0.0);
+    return plus[j] - minus[j] - dec[j] + (j == q - 1 ? dec_total : 0.0) +
+           (extra != nullptr ? (double)extra[j] : 0.0);
   };
   s = 0.0;
   for (int j = hi_row - 1; j >= lo; --j) s += dcum(j);
@@ -1252,7 +1270,8 @@ ssd_bwd_dx_bf16(const BwdParams p) {
 // x_h[j]^T) and w = D dt[j] L, summed over the heads into dS and, times S,
 // over the tile's columns into the head's dcum rows (kMinus, kPlus); then
 // dB += dS C_i or dC += dS B_j.  A dB block then adds sum_h (x_h dt_h w_h)
-// dstates_h.  The sum goes to this split's part.
+// dstates_h.  The sum goes to this split's part; split 0's dC adds
+// dc_extra, the read-out's term of steps 3 and 4.
 // DB: the block's kind is dB (else dC), a template argument so that each
 // kind's loop is compiled without the other's selects.
 template <int P, int N, bool DB>
@@ -1461,6 +1480,26 @@ __device__ __forceinline__ void ds_block(const BwdParams& p,
 
   // acc[4m + e] is own row r + 8 (e / 2), column 8 m + 2 quad + e % 2
   float* out = part_of(p, blk.kind, blk.split, blk.bi, blk.g) + row0 * N;
+  const float* extra = extra_of(p, blk.kind, blk.split, blk.bi, blk.g);
+  if (extra != nullptr) {
+    extra += row0 * N;
+#pragma unroll
+    for (int m = 0; m < N / 2; m += 4) {
+      const int col = 8 * (m / 4) + 2 * quad;
+      if (ra < q) {
+        const float2 e = *reinterpret_cast<const float2*>(
+            extra + (int64_t)ra * N + col);
+        acc[m] += e.x;
+        acc[m + 1] += e.y;
+      }
+      if (rb < q) {
+        const float2 e = *reinterpret_cast<const float2*>(
+            extra + (int64_t)rb * N + col);
+        acc[m + 2] += e.x;
+        acc[m + 3] += e.y;
+      }
+    }
+  }
 #pragma unroll
   for (int m = 0; m < N / 2; m += 4) {
     const int col = 8 * (m / 4) + 2 * quad;
@@ -1865,12 +1904,17 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_ds_f32(const BwdParams p) {
   }
 
   float* out = part_of(p, blk.kind, blk.split, blk.bi, blk.g) + row0 * N;
+  const float* extra = extra_of(p, blk.kind, blk.split, blk.bi, blk.g);
+  if (extra != nullptr) extra += row0 * N;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int go = own0 + ty + 16 * a;
     if (go >= q) continue;
 #pragma unroll
-    for (int k = 0; k < CN; ++k) out[(int64_t)go * N + tx + 16 * k] = acc[a][k];
+    for (int k = 0; k < CN; ++k) {
+      const int64_t at = (int64_t)go * N + tx + 16 * k;
+      out[at] = extra != nullptr ? acc[a][k] + extra[at] : acc[a][k];
+    }
   }
 }
 
@@ -1989,13 +2033,17 @@ int repro_ssd_chunk_fwd(
 // are contiguous and start on 16 bytes.  Scratch: da [B, H, S / chunk] and
 // part [2, splits, B, G, S, N] float32, rows [4, B, H, S] float64, and
 // `work`, 16-byte aligned, 12 * ceil(chunk / 64) * 64 bytes per (batch,
-// head, chunk).  Otherwise as repro_ssd_chunk_fwd.  Writes dx, ddt, da,
+// head, chunk).  dcum, dense float32 [B, H, S] or null, is added to the
+// gradient of cum before its reverse cumsum; dc_extra, dense float32 [B, G,
+// S, N] or null, to split 0's dC.  Otherwise as
+// repro_ssd_chunk_fwd.  Writes dx, ddt, da,
 // part (each split's dB, then its dC); the caller adds the splits.  Returns
 // the CUDA error of the launches (0 on success).
 int repro_ssd_chunk_bwd(
     const void* x, const void* dt, const void* a, const void* b,
     const void* c, const void* dy, const void* dstates, void* dx, void* ddt,
-    void* da, void* part, void* rows, void* work, int dtype, int batch,
+    void* da, void* part, void* rows, void* work, const void* dcum,
+    const void* dc_extra, int dtype, int batch,
     int heads, int groups, int seqlen, int chunk, int p, int n, int splits,
     int64_t x_sb, int64_t x_sh, int64_t x_ss,
     int64_t dt_sb, int64_t dt_sh, int64_t dt_ss,
@@ -2038,6 +2086,8 @@ int repro_ssd_chunk_bwd(
   prm.ddt = static_cast<float*>(ddt); prm.da = static_cast<float*>(da);
   prm.part = static_cast<float*>(part);
   prm.rows = static_cast<double*>(rows);
+  prm.dcum_extra = static_cast<const float*>(dcum);
+  prm.dc_extra = static_cast<const float*>(dc_extra);
   prm.batch = batch; prm.groups = groups; prm.seqlen = seqlen;
   prm.splits = splits; prm.ndim = n;
   prm.dy_sb = dy_sb; prm.dy_sh = dy_sh; prm.dy_ss = dy_ss;

@@ -154,14 +154,20 @@ def ssd_chunk_intra_heads_reference(x: torch.Tensor, dt: torch.Tensor,
 def ssd_chunk_intra_bwd_reference(x: torch.Tensor, dt: torch.Tensor,
                                   a: torch.Tensor, b: torch.Tensor,
                                   c: torch.Tensor, dy: torch.Tensor,
-                                  dstates: torch.Tensor, chunk: int
+                                  dstates: torch.Tensor, chunk: int,
+                                  dcum: Optional[torch.Tensor] = None,
+                                  dc_extra: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, ...]:
     """The gradients of `ssd_chunk_intra_heads_reference`, written out:
     the oracle the backward kernel (`ssd_scan.ssd_chunk_intra_bwd_heads`)
     is held to, and its CPU path.  dy [B,H,S,P] and dstates [B,H,L,P,N]
     are the gradients of y and the states.  Returns (dx [B,H,S,P] in x's
     dtype, ddt [B,H,S], da [B,H], db, dc [B,G,S,N] in b's dtype); ddt and
-    da in the work dtype (float32, float64 for float64 inputs).
+    da in the work dtype (float32, float64 for float64 inputs).  `dcum`
+    [B,H,S] (optional) is added to dcum below before its reverse cumsum,
+    and `dc_extra` [B,G,S,N] to dc before its rounding: the gradients that
+    steps 3 and 4 of the chunked SSD send to cum and to c
+    (`ssd_state_bwd_reference`).
 
     Per chunk, with M = S o L (S = C B^T shared by a group's heads), xdt =
     x dt and w = exp(cum[Q-1] - cum) the decay of the states:
@@ -197,11 +203,110 @@ def ssd_chunk_intra_bwd_reference(x: torch.Tensor, dt: torch.Tensor,
     db = ds.transpose(-1, -2) @ cf + by_group(xst * decay[..., None])
     dp = (dm * m).double()
     gdec = ((xst * bf).sum(-1) * decay).double()            # [B,H,L,Q]
-    dcum = dp.sum(-1) - dp.sum(-2) - gdec
-    dcum[..., -1] += gdec.sum(-1)
-    dda = dcum.flip(-1).cumsum(-1).flip(-1).to(ft)
+    dcum_all = dp.sum(-1) - dp.sum(-2) - gdec
+    dcum_all[..., -1] += gdec.sum(-1)
+    if dcum is not None:
+        dcum_all += dcum.double().reshape(bs, h, l, chunk)
+    dda = dcum_all.flip(-1).cumsum(-1).flip(-1).to(ft)
     ddt = (dxdt * xf).sum(-1) + dda * af[..., None, None]
     da = (dda * dtf).sum((-1, -2))
+    dc = dc.reshape(bs, g, s, n)
+    if dc_extra is not None:
+        dc = dc + dc_extra.to(ft)
     return ((dxdt * dtf[..., None]).reshape(bs, h, s, p).to(x.dtype),
             ddt.reshape(bs, h, s), da, db.reshape(bs, g, s, n).to(b.dtype),
-            dc.reshape(bs, g, s, n).to(b.dtype))
+            dc.to(b.dtype))
+
+
+def ssd_state_reference(y: torch.Tensor, states: torch.Tensor,
+                        dt: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
+                        chunk: int, init: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Steps 3 and 4 of the chunked SSD (`models/ssm.py:ssd_chunked`), the
+    plain version of `ssd_state.ssd_state_heads` and its CPU path: the
+    chunks' states carried from chunk to chunk, and each chunk's entering
+    state read out through the decay inside the chunk.  Heads layout: y
+    [B,H,S,P] (the intra-chunk output y_diag, in the compute dtype), states
+    [B,H,L,P,N] and init [B,H,P,N] (optional) in the work dtype, dt [B,H,S],
+    a [B,H], c [B,G,S,N] with G = H or 1.  With cs = cumsum(dt a) over each
+    chunk, in the work dtype:
+
+        carry[0] = init,  carry[l+1] = carry[l] exp(cs[l, Q-1]) + states[l]
+        entering[l] = carry[l] in the compute dtype
+        y += (C entering^T in the compute dtype) sd,  sd = exp(cs) rounded
+             to the compute dtype
+
+    Returns (y, final = carry[L], entering [B,H,L,P,N] in y's dtype,
+    carries [B,H,L,P,N] = carry[0 .. L-1] in the work dtype, cs [B,H,S]),
+    the last three what the backward needs."""
+    bs, h, s, p = y.shape
+    g, n = c.shape[1], c.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} must divide chunk {chunk}")
+    l = s // chunk
+    ft, cdt = work_dtype(y), y.dtype
+    da = dt.to(ft) * a.to(ft)[..., None]                    # [B,H,S]
+    cs = torch.cumsum(da.reshape(bs, h, l, chunk), dim=-1)  # [B,H,L,Q]
+    decay = torch.exp(cs[..., -1])                          # [B,H,L]
+    carry = torch.zeros((bs, h, p, n), dtype=ft, device=y.device) \
+        if init is None else init.to(ft)
+    carries = []
+    for i in range(l):
+        carries.append(carry)
+        carry = carry * decay[:, :, i, None, None] + states[:, :, i].to(ft)
+    carries = torch.stack(carries, dim=2)                   # [B,H,L,P,N]
+    entering = carries.to(cdt)
+    sd = torch.exp(cs).to(cdt)                              # [B,H,L,Q]
+    cc = c.to(cdt).reshape(bs, g, l, chunk, n)
+    y_off = (cc @ entering.transpose(-1, -2)) * sd[..., None]
+    return (y + y_off.reshape(bs, h, s, p), carry, entering, carries,
+            cs.reshape(bs, h, s))
+
+
+def ssd_state_bwd_reference(dy: torch.Tensor, dfinal: Optional[torch.Tensor],
+                            carries: torch.Tensor, entering: torch.Tensor,
+                            cs: torch.Tensor, c: torch.Tensor, chunk: int
+                            ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of `ssd_state_reference` that do not pass through the
+    intra-chunk block's own inputs, written out: the oracle of the state
+    passes' backward (`ssd_state.ssd_state_bwd_heads`) and its CPU path.
+    dy [B,H,S,P] is the gradient of y (and so of y_diag), dfinal [B,H,P,N]
+    (optional) that of the final state; carries, entering and cs are what
+    the forward returned.  Per chunk l, with e = exp(cs), sd = e rounded to
+    the compute dtype and D = e[Q-1] the chunk's decay:
+
+        dE[l]   = (sd o dy)^T C                       [P, N]
+        Gr      = dy entering[l]                      [Q, N]
+        dc      = sum_h sd o Gr   (over each group's heads)
+        dcs     = e o rowsum(C o Gr), and dcs[Q-1] += D sum(dcarry[l+1] o
+                  carry[l])
+        dcarry[L] = dfinal,  dcarry[l] = dcarry[l+1] D + dE[l]
+        dstates[l] = dcarry[l+1]
+
+    Returns (dstates [B,H,L,P,N], dcs [B,H,S] (the gradient of cs, which
+    the intra-chunk block's backward adds to its own before the reverse
+    cumsum), dc [B,G,S,N], dinit = dcarry[0] [B,H,P,N]), all in the work
+    dtype."""
+    bs, h, s, p = dy.shape
+    g, n = c.shape[1], c.shape[-1]
+    l = s // chunk
+    ft = carries.dtype
+    dyf = dy.to(ft).reshape(bs, h, l, chunk, p)
+    cf = c.to(ft).reshape(bs, g, l, chunk, n)
+    e = torch.exp(cs.to(ft).reshape(bs, h, l, chunk))       # [B,H,L,Q]
+    sd = e.to(entering.dtype).to(ft)
+    d_ent = (dyf * sd[..., None]).transpose(-1, -2) @ cf    # [B,H,L,P,N]
+    gr = dyf @ entering.to(ft)                              # [B,H,L,Q,N]
+    dcs = (gr * cf).sum(-1) * e                             # [B,H,L,Q]
+    dc = (gr * sd[..., None]).reshape(bs, g, h // g, l, chunk, n).sum(2)
+    decay = e[..., -1]                                      # [B,H,L]
+    dcarry = torch.zeros((bs, h, p, n), dtype=ft, device=dy.device) \
+        if dfinal is None else dfinal.to(ft)
+    dstates = [None] * l
+    for i in reversed(range(l)):
+        dstates[i] = dcarry
+        dd = (dcarry * carries[:, :, i]).sum((-1, -2))      # [B,H]
+        dcs[:, :, i, -1] += dd * decay[:, :, i]
+        dcarry = dcarry * decay[:, :, i, None, None] + d_ent[:, :, i]
+    return (torch.stack(dstates, dim=2), dcs.reshape(bs, h, s),
+            dc.reshape(bs, g, s, n), dcarry)

@@ -249,10 +249,11 @@ def ssd_chunk_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 # the backward
 
 # repro_ssd_chunk_bwd's C parameters: x, dt, a, b, c, dy, dstates, dx, ddt,
-# da, part, rows, work; dtype, batch, heads, groups, seqlen, chunk, p, n,
-# splits; the strides of x, dt (b, h, s), a (b, h), b, c (b, g, s), dy
-# (b, h, s), dstates (b, h, chunk), dx, ddt (b, h, s); stream
-BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+# da, part, rows, work, dcum, dc_extra; dtype, batch, heads, groups,
+# seqlen, chunk, p, n, splits; the strides of x, dt (b, h, s), a (b, h),
+# b, c (b, g, s), dy (b, h, s), dstates (b, h, chunk), dx, ddt (b, h, s);
+# stream
+BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
                 + [ctypes.c_int64] * 26 + [ctypes.c_void_p])
 SMS = 132                       # an H100 SXM's streaming multiprocessors
 MAX_SPLIT_HEADS = 64            # heads of one block of the dB / dC pass
@@ -296,13 +297,16 @@ def _contiguous_block(t: torch.Tensor) -> bool:
 
 
 def bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da, part, rows,
-                    work, chunk: int, splits: int) -> tuple:
+                    work, chunk: int, splits: int, dcum=None,
+                    dc_extra=None) -> tuple:
     """repro_ssd_chunk_bwd's arguments but the stream, for checked x, dt
     (float32), a (float32) [B,H], b, c [B,G,S,N], dy [B,H,S,P] (x's dtype),
     dstates [B,H,L,P,N] float32, the outputs dx (x's dtype) and ddt
-    (float32) in x's and dt's layouts, and the scratch `da`, `part`,
+    (float32) in x's and dt's layouts, the scratch `da`, `part`,
     `rows` (`bwd_scratch`, `SCRATCH_DTYPES`) and `work` (uint8,
-    `work_bytes`);
+    `work_bytes`), `dcum` (dense float32 [B,H,S] added to the gradient
+    of cum, or None) and `dc_extra` (dense float32 [B,G,S,N] added to the
+    first split's dC, or None);
     raises on what the kernel does not take.  Reads no device memory."""
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[-1]
@@ -343,10 +347,17 @@ def bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da, part, rows,
             work.data_ptr() % 16:
         raise ValueError(f"the backward needs a 16-byte aligned work buffer "
                          f"of {work_bytes(x, chunk)} bytes")
+    for name, t, shape in (("dcum", dcum, dt.shape),
+                           ("dc_extra", dc_extra, c.shape)):
+        if t is not None and (t.dtype != torch.float32 or t.shape != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be dense float32 {tuple(shape)}")
     return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), dy.data_ptr(), dstates.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), da.data_ptr(), part.data_ptr(), rows.data_ptr(),
-            work.data_ptr(), _DTYPES[x.dtype], bs, h, g, s, chunk, p, n,
+            work.data_ptr(), *(None if t is None else t.data_ptr()
+                               for t in (dcum, dc_extra)),
+            _DTYPES[x.dtype], bs, h, g, s, chunk, p, n,
             splits, *x.stride()[:3], *dt.stride(), *a.stride(),
             *b.stride()[:3], *c.stride()[:3], *dy.stride()[:3],
             *dstates.stride()[:3], *dx.stride()[:3], *ddt.stride())
@@ -359,7 +370,9 @@ def ssd_chunk_intra_bwd_heads(x: torch.Tensor, dt: torch.Tensor,
                               dx: Optional[torch.Tensor] = None,
                               ddt: Optional[torch.Tensor] = None,
                               db: Optional[torch.Tensor] = None,
-                              dc: Optional[torch.Tensor] = None
+                              dc: Optional[torch.Tensor] = None,
+                              dcum: Optional[torch.Tensor] = None,
+                              dc_extra: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, ...]:
     """The gradients of `ssd_chunk_intra_heads` given dy [B,H,S,P] (x's
     dtype) and dstates [B,H,L,P,N] (float32), for its inputs (x [B,H,S,P],
@@ -368,10 +381,15 @@ def ssd_chunk_intra_bwd_heads(x: torch.Tensor, dt: torch.Tensor,
     db, dc [B,G,S,N] in b's dtype; a group's db, dc summed over its
     heads), written into `dx`,
     `ddt`, `db`, `dc` when given (views of those shapes, last dims
-    contiguous).  Inputs that require grad are refused, as by the
-    forward.  On the card, bfloat16 rows off 16 bytes and dstates whose
-    [P, N] blocks are not dense are copied first.  Under a dispatch mode
-    it runs through the custom op `repro_torch::ssd_chunk_intra_bwd`."""
+    contiguous).  `dcum` [B,H,S] and `dc_extra` [B,G,S,N] (work dtype,
+    optional) are the gradients that steps 3 and 4 of the chunked SSD send
+    to cum = cumsum(dt a) and to c (`ssd_state.ssd_state_bwd_heads`): dcum
+    is added to the block's own before the reverse cumsum that gives ddt
+    and da, dc_extra to dc before its rounding.  Inputs that require grad
+    are refused, as by the forward.  On the card, bfloat16 rows off 16
+    bytes and dstates whose [P, N] blocks are not dense are copied first.
+    Under a dispatch mode it runs through the custom op
+    `repro_torch::ssd_chunk_intra_bwd`."""
     _check(x, dt, a, b, c, chunk)
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[-1]
@@ -395,8 +413,13 @@ def ssd_chunk_intra_bwd_heads(x: torch.Tensor, dt: torch.Tensor,
         outs.append(out)
     dx, ddt, db, dc = outs
     da = torch.empty((bs, h), dtype=acc, device=x.device)
-    args = (x, dt, a, b, c, dy, dstates.to(acc), chunk, dx, ddt, da, db, dc)
-    if build.through_op(*args[:7], *args[8:]):
+    for name, t, shape in (("dcum", dcum, dt.shape), ("dc_extra", dc_extra,
+                                                      c.shape)):
+        if t is not None and (t.shape != shape or t.dtype != acc):
+            raise ValueError(f"{name} must be {acc} {tuple(shape)}")
+    args = (x, dt, a, b, c, dy, dstates.to(acc), chunk, dx, ddt, da, db, dc,
+            dcum, dc_extra)
+    if build.through_op(*args[:7], *args[8:13]):
         torch.ops.repro_torch.ssd_chunk_intra_bwd(*args)
     else:
         _ssd_bwd(*args)
@@ -407,12 +430,14 @@ def _ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
              dstates: torch.Tensor, chunk: int, dx: torch.Tensor,
              ddt: torch.Tensor, da: torch.Tensor, db: torch.Tensor,
-             dc: torch.Tensor) -> None:
+             dc: torch.Tensor, dcum: Optional[torch.Tensor] = None,
+             dc_extra: Optional[torch.Tensor] = None) -> None:
     """The checked backward, writing dx, ddt, da, db and dc."""
     if x.device.type == "cpu":
         for out, ref in zip((dx, ddt, da, db, dc),
                             ssd_chunk_intra_bwd_reference(
-                                x, dt, a, b, c, dy, dstates, chunk)):
+                                x, dt, a, b, c, dy, dstates, chunk, dcum,
+                                dc_extra)):
             out.copy_(ref)
         return
 
@@ -421,16 +446,18 @@ def _ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             BWD_KERNEL.launch(
                 *args, torch.cuda.current_stream(x.device).cuda_stream)
     bwd_launch(x, dt, a, b, c, dy, dstates, chunk, dx, ddt, da, db, dc,
-               launch)
+               launch, dcum, dc_extra)
 
 
 def bwd_launch(x, dt, a, b, c, dy, dstates, chunk: int, dx, ddt, da, db, dc,
-               launch: Callable[[tuple], None]) -> None:
+               launch: Callable[[tuple], None], dcum=None,
+               dc_extra=None) -> None:
     """The card's backward around `launch(args)` (the kernel's launch; a
     stand-in on the CPU in tests): dense copies of what the kernel cannot
     read, the scratch, the launch plan, then the splits' partial dB and dC
-    added in order, da summed over the chunks, and dx copied back where it
-    was written through a dense tensor."""
+    added in order (the kernel adds `dc_extra` into the first split's dC),
+    da summed over the chunks, and dx copied back where it was written
+    through a dense tensor."""
     out_dx = dx
     if x.dtype == torch.bfloat16:
         x, b, c = dense_if_unaligned(x, b, c)
@@ -449,8 +476,10 @@ def bwd_launch(x, dt, a, b, c, dy, dstates, chunk: int, dx, ddt, da, db, dc,
         for name, n in bwd_scratch(x, b, chunk, splits).items())
     work = torch.empty(work_bytes(x, chunk), dtype=torch.uint8,
                        device=x.device)
+    dcum, dc_extra = (None if t is None else t.contiguous()
+                      for t in (dcum, dc_extra))
     launch(bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da_chunks,
-                           part, rows, work, chunk, splits))
+                           part, rows, work, chunk, splits, dcum, dc_extra))
     part = part.view(2, splits, bs, g, s, n).sum(1)
     db.copy_(part[0])
     dc.copy_(part[1])
@@ -465,7 +494,8 @@ _ssd_bwd_op = torch.library.custom_op("repro_torch::ssd_chunk_intra_bwd",
 
 
 @_ssd_bwd_op.register_fake
-def _(x, dt, a, b, c, dy, dstates, chunk, dx, ddt, da, db, dc):
+def _(x, dt, a, b, c, dy, dstates, chunk, dx, ddt, da, db, dc, dcum=None,
+      dc_extra=None):
     return None
 
 

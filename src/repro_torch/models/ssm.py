@@ -7,13 +7,14 @@ The SSD recurrence per head (state [P, N], input x_t [P], B_t, C_t [N]):
     y_t = h_t @ C_t + D x_t
 
 Prefill of a prompt whose length is a multiple of the chunk uses the chunked
-block decomposition: the intra-chunk term and each chunk's terminal state
-(steps 1 and 2) come from the hand-written SSD kernel on the card
-(`repro_torch.kernels.ssd_chunk_intra_bshp`; in training its gradients
-from the backward kernel), the inter-chunk recurrence and the read-out of
-the carried state (steps 3 and 4) from plain ops.  Any other
-prompt, and decode, take the sequential recurrence `ssd_reference`, as in
-the reference.  Decode keeps (conv_state, ssm_state) per layer.
+block decomposition, all on hand-written kernels on the card
+(`repro_torch.kernels.ssd_chunked_bshp`; in training one autograd Function
+whose backward is kernels too): the intra-chunk term and each chunk's
+terminal state (steps 1 and 2) from the SSD block's kernel, the
+inter-chunk recurrence and the read-out of the carried state (steps 3 and
+4) from the state passes.  Any other prompt, and decode, take the
+sequential recurrence `ssd_reference`, as in the reference.  Decode keeps
+(conv_state, ssm_state) per layer.
 
 Under tensor parallelism the weights are DTensors placed by the reference's
 specs (repro_torch.launch.sharding): in_proj split on its output dim over
@@ -38,7 +39,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch import obs
-from repro_torch.kernels.ops import ssd_chunk_intra_bshp
+from repro_torch.kernels.ops import ssd_chunked_bshp
 
 from .common import ModelConfig, const_init, dense_init, unsplit_sequence
 
@@ -109,11 +110,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     Steps 1 and 2 (the intra-chunk output and each chunk's state) run in
     float32 inside the SSD kernel on the card, or its plain version on the
-    CPU; under autograd their gradients come from the backward kernel (its
-    plain version on the CPU), also in float32.  The reference runs them in
-    the input dtype, so in bf16 the two differ by bf16 roundings, and in
-    float32 they agree.  Steps 3 and 4 follow the reference under autograd:
-    a float32 carry, emitted and read out in the input dtype.
+    CPU.  The reference runs them in the input dtype, so in bf16 the two
+    differ by bf16 roundings, and in float32 they agree.  Steps 3 and 4
+    (the state passes' kernels, or their plain version) follow the
+    reference: a float32 carry, emitted and read out in the input dtype.
+    Under autograd the four steps are one Function whose gradients come
+    from the backward kernels (their plain versions on the CPU), summed in
+    float32.
 
     The span `ssm.ssd` covers the call and, while the recorder is on, its
     backward pass (`obs.backward_span`)."""
@@ -126,36 +129,17 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, chunk: int,
                  init_state: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    bs, s, h, p = x.shape
-    n = b.shape[-1]
+    s = x.shape[1]
     cdt = x.dtype                                             # compute dtype
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
-    l = s // chunk
-    dt = dt.float()
-    a = a.float()
-
-    # 1, 2. intra-chunk output and per-chunk terminal states (under autograd
-    # the forward and backward kernels)
-    y_diag, states = ssd_chunk_intra_bshp(x, dt, a, b.to(cdt), c.to(cdt),
-                                          chunk)
-
-    # 3. inter-chunk recurrence (f32 carry; emits in compute dtype)
-    da_cs = torch.cumsum((dt * a).reshape(bs, l, chunk, h), dim=2)
-    chunk_decay = torch.exp(da_cs[:, :, -1, :])               # [B,L,H] f32
-    carry = init_state.float() if init_state is not None else \
-        torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
-    entering = []
-    for i in range(l):
-        entering.append(carry.to(cdt))                        # emit entering
-        carry = carry * chunk_decay[:, i, :, None, None] + states[:, i]
-    entering = torch.stack(entering, dim=1)                   # [B,L,H,P,N]
-
-    # 4. off-diagonal: prior state read out through intra-chunk decay
-    state_decay = torch.exp(da_cs).to(cdt)                    # [B,L,Q,H]
-    c_c = c.to(cdt).reshape(bs, l, chunk, n)
-    y_off = torch.einsum("blqn,blhpn,blqh->blqhp", c_c, entering, state_decay)
-    return y_diag + y_off.reshape(bs, s, h, p), carry
+    # 1, 2: the intra-chunk output and each chunk's terminal state; 3: the
+    # inter-chunk recurrence (a float32 carry, entering each chunk in the
+    # compute dtype); 4: the entering state read out through the decay
+    # inside the chunk
+    return ssd_chunked_bshp(x, dt.float(), a.float(), b.to(cdt), c.to(cdt),
+                            chunk, None if init_state is None
+                            else init_state.float())
 
 
 def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -358,3 +358,38 @@ def test_fake_ssd_backward_op_matches_the_plain_version(g):
     assert [t.shape for t in outs] == [t.shape for t in ref]
     assert kernel.flops == plain.flops == 2 * bs * s * (
         3 * g * q * n + 2 * h * (q * p + p * n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fake_state_ops_match_the_plain_version(dtype):
+    """The state passes' custom ops (steps 3 and 4 of the chunked SSD)
+    under fake tensors: their outputs' shapes and their FLOP formulas,
+    the matmul FLOPs of the plain versions (the read-out, then dE and
+    dy entering)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.ssd_state import (ssd_state_bwd_heads,
+                                               ssd_state_heads)
+    bs, h, s, p, n, q = 2, 4, 64, 16, 32, 16
+    gen = torch.Generator().manual_seed(0)
+    y = torch.randn(bs, h, s, p, generator=gen).to(dtype)
+    st = torch.randn(bs, h, s // q, p, n, generator=gen)
+    dt = torch.rand(bs, h, s, generator=gen)
+    a = -torch.rand(bs, h, generator=gen)
+    c = torch.randn(bs, 1, s, n, generator=gen).to(dtype)
+    dy = torch.randn(bs, h, s, p, generator=gen).to(dtype)
+    with thc.Counter() as plain:
+        ry, fin, ent, car, cs = kref.ssd_state_reference(y, st, dt, a, c, q)
+    with thc.Counter() as plain_bwd:
+        ref = kref.ssd_state_bwd_reference(dy, None, car, ent, cs, c, q)
+    with FakeTensorMode() as fm:
+        fake = [fm.from_tensor(t) for t in (y, st, dt, a, c, dy)]
+        with thc.Counter() as kernel:
+            outs = ssd_state_heads(*fake[:5], q)
+        with thc.Counter() as kernel_bwd:
+            grads = ssd_state_bwd_heads(fake[5], None, outs[2], outs[1],
+                                        outs[3], fake[4], q)
+    assert [t.shape for t in outs] == [t.shape for t in (fin, ent, car, cs)]
+    assert [t.shape for t in grads] == [t.shape for t in ref]
+    assert kernel.flops == plain.flops == 2 * bs * s * h * p * n
+    assert kernel_bwd.flops == plain_bwd.flops == 4 * bs * s * h * p * n

@@ -13,8 +13,13 @@ views.
 
 The backward kernel's oracle, `ref.ssd_chunk_intra_bwd_reference`, is held
 to torch.autograd of the plain forward in float64 (1e-12 of each
-gradient's size); the autograd Function to finite differences
-(gradcheck); the backward's launch plan and C prototype as the forward's.
+gradient's size); the backward's launch plan and C prototype as the
+forward's.  Steps 3 and 4 (the state passes, `kernels/ssd_state.py`): their
+plain backward with the block's (`ref.ssd_state_bwd_reference`) against
+autograd of the plain forward in float64; the autograd Function of all four
+steps against finite differences (gradcheck) and against autograd of the
+chunked SSD's plain steps as `models/ssm.py` ran them before the kernels,
+on head-slice views too; their launch plans and C prototypes.
 
 Tolerances (chip_smoke.py's SSD_TOL and SSD_TOL_BF16_Y): states, float32,
 atol 1e-4 + rtol 1e-4 (two bf16 parts carry each term to ~2**-16, over up
@@ -32,9 +37,14 @@ import torch
 from repro.kernels.ssd_scan import ssd_chunk_intra as jax_ssd_chunk_intra
 from repro_torch.kernels import ssd_chunk_intra_bshp, ssd_chunk_intra_reference
 from repro_torch.kernels.build import CSRC
-from repro_torch.kernels.ops import SSDIntraBSHP, ssd_chunk_intra_bshp_bwd
+from repro_torch.kernels import ssd_state
+from repro_torch.kernels.ops import (SSDChunked, heads_views,
+                                     ssd_chunk_intra_bshp_bwd,
+                                     ssd_chunked_bshp)
 from repro_torch.kernels.ref import (ssd_chunk_intra_bwd_reference,
-                                     ssd_chunk_intra_heads_reference)
+                                     ssd_chunk_intra_heads_reference,
+                                     ssd_state_bwd_reference,
+                                     ssd_state_reference)
 from repro_torch.kernels.ssd_scan import (ARGTYPES, BWD_ARGTYPES, DIMS,
                                           MAX_CHUNK, SCRATCH_DTYPES,
                                           bwd_launch,
@@ -320,33 +330,40 @@ def test_bwd_reference_returns_the_input_dtypes():
                                       torch.bfloat16]
 
 
-def test_autograd_function_passes_gradcheck():
-    """SSDIntraBSHP on CPU tensors in float64: the plain forward and the
-    plain backward, against finite differences, every input."""
+@pytest.mark.parametrize("with_init", [False, True])
+def test_autograd_function_passes_gradcheck(with_init):
+    """SSDChunked (all four steps) on CPU tensors in float64: the plain
+    forwards and the plain backwards, against finite differences, every
+    input and the initial state; two chunks."""
     gen = torch.Generator().manual_seed(3)
     bs, s, h, p, n, q = 1, 8, 2, 3, 4, 4
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, dtype=torch.float64)
-    ins = (rnd(bs, s, h, p), torch.nn.functional.softplus(rnd(bs, s, h)),
-           -torch.exp(rnd(h)), rnd(bs, s, n), rnd(bs, s, n))
-    ins = [t.requires_grad_() for t in ins]
+    ins = [rnd(bs, s, h, p), torch.nn.functional.softplus(rnd(bs, s, h)),
+           -torch.exp(rnd(h)), rnd(bs, s, n), rnd(bs, s, n),
+           rnd(bs, h, p, n) if with_init else None]
+    ins = [None if t is None else t.requires_grad_() for t in ins]
     assert torch.autograd.gradcheck(
-        lambda *t: SSDIntraBSHP.apply(*t, q), ins)
+        lambda *t: SSDChunked.apply(*t[:5], q, t[5]), ins)
 
 
 def test_bshp_block_under_autograd_is_the_function():
-    """Grad enabled and an input that requires grad: the Function; else
-    (no grad, inference) the kernel's direct path, no graph."""
+    """Grad enabled and an input that requires grad: the chunked SSD is
+    the Function of all four steps; else (no grad, inference) the kernels'
+    direct path, no graph.  The block alone takes no input that requires
+    grad: under autograd it runs only inside the Function."""
     x, dt, a, b, c, _, _ = heads_inputs(1, 2, 1, 32, 16, 16, 16,
                                         dtype=torch.float32)
     views = (x.transpose(1, 2), dt.transpose(1, 2), a[0], b[:, 0], c[:, 0])
-    y, _ = ssd_chunk_intra_bshp(*views, 16)
+    y, _ = ssd_chunked_bshp(*views, 16)
     assert y.grad_fn is None
-    y, _ = ssd_chunk_intra_bshp(views[0].requires_grad_(), *views[1:], 16)
-    assert type(y.grad_fn).__name__ == "SSDIntraBSHPBackward"
+    y, _ = ssd_chunked_bshp(views[0].requires_grad_(), *views[1:], 16)
+    assert type(y.grad_fn).__name__ == "SSDChunkedBackward"
     with torch.no_grad():
-        assert ssd_chunk_intra_bshp(*views, 16)[0].grad_fn is None
+        assert ssd_chunked_bshp(*views, 16)[0].grad_fn is None
+    with pytest.raises(ValueError, match="no backward"):
+        ssd_chunk_intra_bshp(*views, 16)
 
 
 def bwd_views(bs, s, h, p, n, dtype, q=64, g=1, offset=0):
@@ -382,14 +399,18 @@ def test_bwd_launch_plan_takes_every_p_and_n(p, n, dtype):
     args = bwd_launch_args(*views, 64, splits)
     assert len(args) == len(BWD_ARGTYPES) - 1     # all but the stream
     assert args[:13] == tuple(t.data_ptr() for t in views)
-    assert args[13:22] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
+    assert args[13:15] == (None, None)    # no dcum, dc_extra from steps 3-4
+    dcum, dc_extra = torch.zeros(bs, h, s), torch.zeros(bs, 1, s, n)
+    assert bwd_launch_args(*views, 64, splits, dcum, dc_extra)[13:15] == \
+        (dcum.data_ptr(), dc_extra.data_ptr())
+    assert args[15:24] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
                            bs, h, 1, s, 64, p, n, splits)
     x, dt, a, b, c, dy, dst, dx, ddt = views[:9]
     row = h * p + 2 * n
-    assert args[22:25] == (s * row, p, row) == x.stride()[:3]
-    assert args[25:30] == dt.stride() + (0, 1)    # a: batch stride 0
-    assert args[30:36] == b.stride()[:3] + c.stride()[:3]
-    assert args[36:] == (dy.stride()[:3] + dst.stride()[:3] +
+    assert args[24:27] == (s * row, p, row) == x.stride()[:3]
+    assert args[27:32] == dt.stride() + (0, 1)    # a: batch stride 0
+    assert args[32:38] == b.stride()[:3] + c.stride()[:3]
+    assert args[38:] == (dy.stride()[:3] + dst.stride()[:3] +
                          dx.stride()[:3] + ddt.stride())
 
 
@@ -413,6 +434,11 @@ def test_bwd_launch_plan_refuses_what_the_kernel_does_not_take():
                         splits)
     with pytest.raises(ValueError, match="rows"):
         bwd_launch_args(*views[:11], rows[:-1], work, 64, splits)
+    with pytest.raises(ValueError, match="dcum"):
+        bwd_launch_args(*views, 64, splits, torch.zeros(1, 2, 127))
+    with pytest.raises(ValueError, match="dc_extra"):
+        bwd_launch_args(*views, 64, splits, None,
+                        torch.zeros(1, 1, 64, 128).transpose(-1, -2))
     for short in (work[:-16], work[8:]):       # small, unaligned
         with pytest.raises(ValueError, match="work buffer"):
             bwd_launch_args(*views[:12], short, 64, splits)
@@ -483,9 +509,356 @@ def test_bwd_wrapper_takes_the_functions_views(dtype, offset):
                          ssd_chunk_intra_bshp_bwd(*bshp, dy, dst, q)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     launched = []
+    dcum, dc_extra = torch.zeros(bs, h, s), torch.zeros(bs, 1, s, n)
     bwd_launch(*views, q, dx.transpose(1, 2), ddt.transpose(1, 2),
-               torch.empty(bs, h), db[:, None], dc[:, None], launched.append)
+               torch.empty(bs, h), db[:, None], dc[:, None], launched.append,
+               dcum, dc_extra)
     (args,) = launched
     assert len(args) == len(BWD_ARGTYPES) - 1
-    assert args[13:22] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
+    # steps 3-4's terms go to the kernel as pointers
+    assert args[13:15] == (dcum.data_ptr(), dc_extra.data_ptr())
+    assert args[15:24] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
                            bs, h, 1, s, q, p, n, bwd_splits(bs, h, 1, 2, 1))
+
+
+# ---------------------------------------------------------------------- #
+# steps 3 and 4: the state passes, their plain versions, the Function of
+# all four steps, the launch plans
+# ---------------------------------------------------------------------- #
+
+def old_plain_chunked(x, dt, a, b, c, q, init=None):
+    """The chunked SSD as models/ssm.py ran it before the state kernels:
+    the block's plain version (steps 1 and 2) and plain ops for steps 3
+    and 4, in the model's layout, differentiable end to end."""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    l = s // q
+    cdt = x.dtype
+    y, st = ssd_chunk_intra_heads_reference(*heads_views(x, dt, a, b, c), q)
+    y_diag, states = y.transpose(1, 2), st.transpose(1, 2)
+    da_cs = torch.cumsum((dt * a).reshape(bs, l, q, h), dim=2)
+    chunk_decay = torch.exp(da_cs[:, :, -1, :])
+    carry = init.to(states.dtype) if init is not None else \
+        torch.zeros((bs, h, p, n), dtype=states.dtype)
+    entering = []
+    for i in range(l):
+        entering.append(carry.to(cdt))
+        carry = carry * chunk_decay[:, i, :, None, None] + states[:, i]
+    entering = torch.stack(entering, dim=1)
+    state_decay = torch.exp(da_cs).to(cdt)
+    c_c = c.to(cdt).reshape(bs, l, q, n)
+    y_off = torch.einsum("blqn,blhpn,blqh->blqhp", c_c, entering, state_decay)
+    return y_diag + y_off.reshape(bs, s, h, p), carry
+
+
+def chunked_inputs(bs, s, h, p, n, seed, overflow=False, dtype=torch.float64):
+    """x [B,S,H,P], dt, a [H], b, c [B,S,N], init [B,H,P,N], dy, dfinal;
+    `overflow`: dt + 1 and a * 40, a decay past exp's range in a chunk."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype)
+    dt = torch.nn.functional.softplus(rnd(bs, s, h)) + (1.0 if overflow
+                                                         else 0.0)
+    a = -torch.exp(rnd(h)) * (40.0 if overflow else 1.0)
+    return (rnd(bs, s, h, p), dt, a, rnd(bs, s, n), rnd(bs, s, n),
+            rnd(bs, h, p, n), rnd(bs, s, h, p), rnd(bs, h, p, n))
+
+
+def grads_of(fn, ins, init, dy, dfinal):
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    il = None if init is None else init.detach().clone().requires_grad_()
+    y, f = fn(*leaves, il)
+    torch.autograd.backward((y, f), (dy, dfinal))
+    return (y.detach(), f.detach(),
+            [t.grad for t in leaves] + ([il.grad] if il is not None else []))
+
+
+@pytest.mark.parametrize("case", ["two_chunks", "init", "one_chunk",
+                                  "one_row_chunks", "overflow",
+                                  "head_slice"])
+def test_chunked_function_equals_autograd_of_the_plain_steps(case):
+    """The Function of all four steps (SSDChunked) on CPU tensors in
+    float64: its forward and every gradient (x, dt, a, b, c and the
+    initial state) equal torch.autograd of the plain steps 1-4 as
+    models/ssm.py ran them before the state kernels (1e-12 of each
+    gradient's size).  With an initial state, with L = 1, with chunks of
+    one row, with a decay past exp's range, and on the last rank's head
+    slice of a [B,S,6,P] tensor (views, b and c whole)."""
+    shape = dict(two_chunks=(2, 32, 3, 8, 16, 16),
+                 init=(2, 32, 3, 8, 16, 16), one_chunk=(1, 16, 2, 8, 16, 16),
+                 one_row_chunks=(1, 6, 2, 4, 8, 1),
+                 overflow=(1, 32, 2, 16, 16, 16),
+                 head_slice=(2, 32, 6, 8, 16, 16))[case]
+    bs, s, h, p, n, q = shape
+    x, dt, a, b, c, init, dy, dfin = chunked_inputs(
+        bs, s, h, p, n, seed=len(case), overflow=case == "overflow")
+    if case != "init":
+        init = None
+    if case == "head_slice":
+        heads = slice(3, 6)
+        x, dt, a, dy = x[:, :, heads], dt[:, :, heads], a[heads], \
+            dy[:, :, heads]
+        dfin = dfin[:, heads]
+        assert not x.is_contiguous()
+    ins = (x, dt, a, b, c)
+    y, f, got = grads_of(lambda *t: ssd_chunked_bshp(*t[:5], q, t[5]), ins,
+                         init, dy, dfin)
+    ry, rf, ref = grads_of(lambda *t: old_plain_chunked(*t[:5], q, t[5]),
+                           ins, init, dy, dfin)
+    torch.testing.assert_close(y, ry, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(f, rf, rtol=1e-12, atol=1e-12)
+    for name, g, r in zip(("dx", "ddt", "da", "db", "dc", "dinit"), got, ref):
+        assert torch.isfinite(g).all(), name
+        err = (g - r).abs().max() / r.abs().max().clamp_min(1.0)
+        assert err <= 1e-12, (name, err.item())
+
+
+@pytest.mark.parametrize("g", [1, 3])
+@pytest.mark.parametrize("with_init,with_dfinal", [(False, False),
+                                                   (True, True)])
+@pytest.mark.parametrize("q", [1, 16])
+def test_state_bwd_reference_equals_autograd_of_the_plain_forward(
+        g, with_init, with_dfinal, q):
+    """`ssd_state_bwd_reference` and the block's plain backward, given its
+    dcs and dc, against autograd of the plain forwards of all four steps in
+    the heads layout, float64: b and c shared by the 3 heads (G = 1) or
+    one per head (G = H); dfinal zero or not."""
+    bs, h, s, p, n = 2, 3, 2 * q, 8, 16
+    x, dt, a, b, c, dy, _ = heads_inputs(bs, h, g, s, p, n, q, seed=q + g)
+    gen = torch.Generator().manual_seed(5)
+    init = torch.randn(bs, h, p, n, generator=gen, dtype=torch.float64) \
+        if with_init else None
+    dfin = torch.randn(bs, h, p, n, generator=gen, dtype=torch.float64) \
+        if with_dfinal else None
+    leaves = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    il = None if init is None else init.clone().requires_grad_()
+    y, st = ssd_chunk_intra_heads_reference(*leaves, q)
+    y, fin, _, _, _ = ssd_state_reference(y, st, leaves[1], leaves[2],
+                                          leaves[4], q, il)
+    loss = (y * dy).sum() + (0 if dfin is None else (fin * dfin).sum())
+    loss.backward()
+    ref = [t.grad for t in leaves] + ([il.grad] if il is not None else [])
+    y0, st0 = ssd_chunk_intra_heads_reference(x, dt, a, b, c, q)
+    _, _, ent, car, cs = ssd_state_reference(y0, st0, dt, a, c, q, init)
+    dst, dcs, dc_state, dinit = ssd_state_bwd_reference(dy, dfin, car, ent,
+                                                        cs, c, q)
+    got = list(ssd_chunk_intra_bwd_reference(x, dt, a, b, c, dy, dst, q,
+                                             dcum=dcs, dc_extra=dc_state))
+    got += [dinit] if with_init else []
+    check_grads(got, ref, 1e-12)
+
+
+def test_state_reference_in_bf16_rounds_where_the_model_did():
+    """bf16: the entering states and the state decay are rounded to bf16,
+    the carries, the final state and cs stay float32, and y is the model's
+    old steps 3 and 4 to the bit."""
+    x, dt, a, b, c, init, _, _ = chunked_inputs(2, 32, 3, 16, 16, seed=9,
+                                                dtype=torch.float32)
+    x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    y, f = ssd_chunked_bshp(x, dt, a, b, c, 16, init)
+    ry, rf = old_plain_chunked(x, dt, a, b, c, 16, init)
+    assert y.dtype == torch.bfloat16 and f.dtype == torch.float32
+    assert torch.equal(y, ry) and torch.equal(f, rf)
+    yd, st = ssd_chunk_intra_heads_reference(*heads_views(x, dt, a, b, c), 16)
+    _, fin, ent, car, cs = ssd_state_reference(
+        yd, st, dt.transpose(1, 2), a.expand(2, 3), c[:, None], 16, init)
+    assert ent.dtype == torch.bfloat16 and torch.equal(ent, car.bfloat16())
+    assert car.dtype == cs.dtype == fin.dtype == torch.float32
+
+
+def state_views(bs, s, h, p, n, dtype, q=64, offset=0):
+    """The state kernels' arguments as the Function hands them over: the
+    block's y [B,S,H,P] and states [B,L,H,P,N] as transposed views, dt
+    [B,S,H] transposed, a [B,H] with a batch stride of 0, c [B,1,S,N]
+    expanded to the heads (head stride 0) from a slice of the conv output
+    shifted by `offset` elements, and the dense outputs."""
+    l = s // q
+    y = torch.zeros(bs, s, h, p, dtype=dtype).transpose(1, 2)
+    st = torch.zeros(bs, l, h, p, n).transpose(1, 2)
+    dt = torch.zeros(bs, s, h).transpose(1, 2)
+    a = torch.zeros(h).expand(bs, h)
+    xbc = torch.zeros(bs, s, offset + h * p + 2 * n, dtype=dtype)[..., offset:]
+    c = xbc[..., h * p + n:][:, None].expand(bs, h, s, n)
+    fin = torch.empty(bs, h, p, n)
+    ent = torch.empty(bs, h, l, p, n, dtype=dtype)
+    car = torch.empty(bs, h, l, p, n) if dtype == torch.bfloat16 else None
+    cs = torch.empty(bs, h, s)
+    return y, st, dt, a, c, None, fin, car, ent, cs
+
+
+@pytest.mark.parametrize("p", DIMS)
+@pytest.mark.parametrize("n", DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_state_launch_plans_take_every_p_and_n(p, n, dtype):
+    """What a CUDA call hands the state kernels' C entry points through
+    the Function's views: pointers, dtype, shapes, the P-tile, the head
+    splits and every stride (c with a head stride of 0)."""
+    bs, s, h, q = 2, 128, 3, 64
+    y, st, dt, a, c, init, fin, car, ent, cs = state_views(bs, s, h, p, n,
+                                                           dtype)
+    ptile = ssd_state.ptile_for(bs, h, p)
+    args = ssd_state.fwd_launch_args(y, st, dt, a, c, init, fin, car, ent,
+                                     cs, q, ptile)
+    assert len(args) == len(ssd_state.FWD_ARGTYPES) - 1
+    assert args[:10] == (y.data_ptr(), st.data_ptr(), dt.data_ptr(),
+                         a.data_ptr(), c.data_ptr(), None, fin.data_ptr(),
+                         None if car is None else car.data_ptr(),
+                         ent.data_ptr(), cs.data_ptr())
+    assert args[10:18] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
+                           bs, h, s, q, p, n, ptile)
+    assert args[18:21] == y.stride()[:3] and args[21:24] == st.stride()[:3]
+    assert args[24:29] == dt.stride() + (0, 1)      # a: batch stride 0
+    assert args[29:] == (c.stride(0), 0, c.stride(2))
+    # the backward: dy as the Function's transposed view, c [B,1,S,N]
+    dy = torch.zeros(bs, s, h, p, dtype=dtype).transpose(1, 2)
+    c1 = c[:, :1]
+    dst, dinit = torch.empty(ent.shape), torch.empty(fin.shape)
+    dcs, dc = torch.empty(cs.shape), torch.empty(bs, 1, s, n)
+    splits = ssd_state.readout_splits(bs, h, 1, s // q, 1)
+    part = torch.empty(splits, bs, 1, s, n)
+    carries = ent if car is None else car
+    args = ssd_state.bwd_launch_args(dy, None, carries, ent, cs, c1, dst,
+                                     dinit, dcs, part, dc, q, splits)
+    assert len(args) == len(ssd_state.BWD_ARGTYPES) - 1
+    assert args[:11] == (dy.data_ptr(), None, carries.data_ptr(),
+                         ent.data_ptr(), cs.data_ptr(), c1.data_ptr(),
+                         dst.data_ptr(), dinit.data_ptr(), dcs.data_ptr(),
+                         part.data_ptr(), dc.data_ptr())
+    assert args[11:20] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
+                           bs, h, 1, s, q, p, n, splits)
+    assert args[20:] == dy.stride()[:3] + c1.stride()[:3]
+
+
+def test_state_launch_plans_refuse_what_the_kernels_do_not_take():
+    views = state_views(1, 128, 2, 64, 64, torch.bfloat16)
+    y, st, dt, a, c, init, fin, car, ent, cs = views
+    ssd_state.fwd_launch_args(*views, 64, 64)
+    with pytest.raises(ValueError, match="head dim 48"):
+        ssd_state.fwd_launch_args(*state_views(1, 128, 2, 48, 64,
+                                               torch.bfloat16), 64, 16)
+    with pytest.raises(ValueError, match="state dim 8"):
+        ssd_state.fwd_launch_args(*state_views(1, 128, 2, 64, 8,
+                                               torch.bfloat16), 64, 16)
+    with pytest.raises(ValueError, match=f"> {MAX_CHUNK}"):
+        ssd_state.fwd_launch_args(*views, 2 * MAX_CHUNK, 64)
+    for ptile in (8, 128):
+        with pytest.raises(ValueError, match="ptile"):
+            ssd_state.fwd_launch_args(*views, 64, ptile)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_state.fwd_launch_args(y, st, dt.double(), *views[3:], 64, 64)
+    with pytest.raises(ValueError, match="carries"):
+        ssd_state.fwd_launch_args(*views[:7], None, ent, cs, 64, 64)
+    with pytest.raises(ValueError, match="states"):
+        ssd_state.fwd_launch_args(y, st.transpose(-1, -2), *views[2:], 64,
+                                  64)
+    with pytest.raises(ValueError, match="dense"):
+        ssd_state.fwd_launch_args(*views[:8], ent.transpose(1, 2), cs, 64,
+                                  64)
+    # the conv output's rows shifted by one element: c's bf16 rows 2 bytes
+    # off 16; float32 takes any start
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd_state.fwd_launch_args(*state_views(1, 128, 2, 64, 64,
+                                               torch.bfloat16, offset=1),
+                                  64, 64)
+    ssd_state.fwd_launch_args(*state_views(1, 128, 2, 64, 64, torch.float32,
+                                           offset=1), 64, 64)
+    # the backward
+    dy = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
+    c1 = c[:, :1]
+    outs = (torch.empty(ent.shape), None, torch.empty(cs.shape),
+            torch.empty(1, 1, 1, 128, 64), torch.empty(1, 1, 128, 64))
+    ssd_state.bwd_launch_args(dy, None, car, ent, cs, c1, *outs, 64, 1)
+    with pytest.raises(ValueError, match="splits"):
+        ssd_state.bwd_launch_args(dy, None, car, ent, cs, c1, *outs, 64, 3)
+    with pytest.raises(ValueError, match="groups"):
+        ssd_state.bwd_launch_args(dy, None, car, ent, cs,
+                                  c1.expand(1, 3, 128, 64), *outs, 64, 1)
+    with pytest.raises(ValueError, match="dc_part"):
+        ssd_state.bwd_launch_args(dy, None, car, ent, cs, c1, *outs[:3],
+                                  torch.empty(2, 1, 1, 128, 64), outs[4],
+                                  64, 1)
+    with pytest.raises(ValueError, match="dfinal"):
+        ssd_state.bwd_launch_args(dy, torch.empty(1, 2, 64, 64).double(),
+                                  car, ent, cs, c1, *outs, 64, 1)
+    off = torch.zeros(dy.numel() + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16 bytes"):       # 2 bytes off
+        ssd_state.bwd_launch_args(off.view(1, 128, 2, 64).transpose(1, 2),
+                                  None, car, ent, cs, c1, *outs, 64, 1)
+
+
+@pytest.mark.parametrize("entry,argtypes", [
+    ("repro_ssd_state_fwd", "FWD_ARGTYPES"),
+    ("repro_ssd_state_bwd", "BWD_ARGTYPES")])
+def test_state_ctypes_signatures_match_the_c_entry_points(entry, argtypes):
+    """The state kernels build only on the card, so each binding's
+    argument list is held here against its C prototype in the source."""
+    src = (CSRC / "ssd_state.cu").read_text()
+    params = re.search(rf"int {entry}\((.*?)\)", src, re.S).group(1)
+    c_types = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+               "int64_t": ctypes.c_int64}
+    declared = [c_types[re.sub(r"^const ", "", p.strip()).rsplit(" ", 1)[0]
+                        .replace(" *", "*")]
+                for p in params.split(",")]
+    assert declared == getattr(ssd_state, argtypes)
+
+
+@pytest.mark.parametrize("bs,h,p,want", [
+    (2, 48, 64, 32),       # mamba2-780m's train step: 96 -> 192 blocks
+    (2, 64, 64, 32),       # zamba2-1.2b's: 128 blocks, below the card's 132
+    (4, 48, 64, 64),       # 192 blocks at whole tiles
+    (2, 3, 64, 16),        # a rank's 3 heads: as fine as it goes
+    (1, 8, 16, 16),        # P of 16: one tile
+    (4, 48, 128, 64),      # P of 128: at most 64 rows a block
+])
+def test_forward_walk_splits_p_to_fill_the_card(bs, h, p, want):
+    assert ssd_state.ptile_for(bs, h, p) == want
+
+
+@pytest.mark.parametrize("bs,h,g,chunks,tiles,want", [
+    (2, 48, 1, 8, 8, 3),       # mamba2-780m's train step: 128 -> 384 blocks
+    (2, 3, 1, 2, 8, 3),        # a rank's 3 heads: a block a head
+    (2, 3, 3, 2, 1, 1),        # G = H: one head a group
+    (1, 48, 1, 64, 8, 1),      # many chunks: no split
+])
+def test_readout_backward_splits_heads_to_fill_the_card(bs, h, g, chunks,
+                                                        tiles, want):
+    assert ssd_state.readout_splits(bs, h, g, chunks, tiles) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_state_bwd_wrapper_takes_the_functions_views(dtype, offset):
+    """The state passes' backward on the CPU (the plain version, written
+    into the wrapper's buffers, equal to calling it directly), and the
+    card's flow around the launch with a stand-in for the kernels: dense
+    copies of dy and c where bf16 rows are off 16 bytes, the head splits'
+    buffer (dc itself with one split), the launch plan."""
+    bs, s, h, p, n, q = 2, 128, 3, 16, 32, 64
+    x, dt, a, b, c, init, dy, dfin = chunked_inputs(bs, s, h, p, n, seed=2,
+                                                    dtype=torch.float32)
+    xbc = torch.zeros(bs, s, offset + 2 * n, dtype=dtype)[..., offset:]
+    xbc[..., n:] = c.to(dtype)
+    c = xbc[..., n:]
+    y, st = ssd_chunk_intra_heads_reference(
+        *heads_views(x.to(dtype), dt, a, b.to(dtype), c), q)
+    _, _, ent, car, cs = ssd_state_reference(
+        y, st, dt.transpose(1, 2), a.expand(bs, h), c[:, None], q, init)
+    dyh = dy.to(dtype).transpose(1, 2)
+    got = ssd_state.ssd_state_bwd_heads(dyh, dfin, car, ent, cs, c[:, None],
+                                        q)
+    for g_, r in zip(got, ssd_state_bwd_reference(dyh, dfin, car, ent, cs,
+                                                  c[:, None], q)):
+        torch.testing.assert_close(g_, r, rtol=0, atol=0)
+    launched = []
+    dst, dcs, dc, dinit = (torch.empty(t.shape) for t in got)
+    ssd_state.bwd_launch(dyh, dfin, car, ent, cs, c[:, None], q, dst, dcs,
+                         dc, dinit, launched.append)
+    (args,) = launched
+    splits = ssd_state.readout_splits(bs, h, 1, s // q, 1)
+    assert args[11:20] == ({torch.float32: 0, torch.bfloat16: 1}[dtype],
+                           bs, h, 1, s, q, p, n, splits)
+    assert args[10] == dc.data_ptr() and (args[9] == dc.data_ptr()) == (
+        splits == 1)
+    copied = offset == 1 and dtype == torch.bfloat16
+    assert (args[5] != c.data_ptr()) == copied

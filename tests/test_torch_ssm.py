@@ -33,7 +33,9 @@ from repro.models import build_model as jax_build
 from repro.models import ssm as jssm
 from repro_torch.configs import reduced_config
 from repro_torch.convert import from_jax_params
-from repro_torch.kernels import (SSD_BWD_KERNEL, SSD_KERNEL, build,
+from repro_torch.kernels import (SSD_BWD_KERNEL, SSD_KERNEL,
+                                 SSD_STATE_BWD_KERNEL, SSD_STATE_KERNEL,
+                                 build,
                                  ssd_chunk_intra, ssd_chunk_intra_heads,
                                  ssd_chunk_reference)
 from repro_torch.kernels.ops import ssd_chunk_intra_bshp
@@ -247,10 +249,11 @@ def test_ssd_chunked_equals_sequential_recurrence():
 
 def test_ssd_chunked_under_autograd_takes_plain_path_with_gradients(
         monkeypatch):
-    """Inputs that require grad go through the SSD block's autograd
-    Function (on the card the forward and backward kernels); on CPU tensors
-    its forward and backward are the plain versions, and no kernel
-    launches.  Every gradient, x, dt, a, b and c, equals JAX's."""
+    """Inputs that require grad go through the chunked SSD's autograd
+    Function (on the card the forward and backward kernels of all four
+    steps); on CPU tensors its forward and backward are the plain versions,
+    and no kernel launches.  Every gradient, x, dt, a, b and c, equals
+    JAX's."""
     x, dt, a, b, c, _ = ssd_model_inputs(1, 32, 2, 8, 16, seed=7)
 
     def loss_j(*args):
@@ -259,19 +262,21 @@ def test_ssd_chunked_under_autograd_takes_plain_path_with_gradients(
     gj = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(
         *map(jnp.asarray, (x, dt, a, b, c)))
     ins = [torch.from_numpy(v).requires_grad_() for v in (x, dt, a, b, c)]
-    before = SSD_KERNEL.launches, SSD_BWD_KERNEL.launches
+    kernels = (SSD_KERNEL, SSD_BWD_KERNEL, SSD_STATE_KERNEL,
+               SSD_STATE_BWD_KERNEL)
+    before = [k.launches for k in kernels]
     calls = []
-    real = tssm.ssd_chunk_intra_bshp
+    real = tssm.ssd_chunked_bshp
 
     def spy(*args, **kw):
         out = real(*args, **kw)
         calls.append(type(out[0].grad_fn).__name__)
         return out
-    monkeypatch.setattr(tssm, "ssd_chunk_intra_bshp", spy)
+    monkeypatch.setattr(tssm, "ssd_chunked_bshp", spy)
     y, f = tssm.ssd_chunked(*ins, 16)
     ((y ** 2).sum() + f.sum()).backward()
-    assert calls and "SSDIntraBSHP" in calls[0]
-    assert (SSD_KERNEL.launches, SSD_BWD_KERNEL.launches) == before
+    assert calls and "SSDChunked" in calls[0]
+    assert [k.launches for k in kernels] == before
     for t, r in zip(ins, gj):
         close(t.grad, r, 1e-3, 1e-4)
 
@@ -379,8 +384,8 @@ def test_mamba2_forward_routes_through_the_ssd_block(monkeypatch, s):
     an unaligned one never does."""
     cfg = reduced_config("mamba2-780m")
     calls = []
-    real = tssm.ssd_chunk_intra_bshp
-    monkeypatch.setattr(tssm, "ssd_chunk_intra_bshp",
+    real = tssm.ssd_chunked_bshp
+    monkeypatch.setattr(tssm, "ssd_chunked_bshp",
                         lambda *a, **k: calls.append(k) or real(*a, **k))
     with torch.inference_mode():
         tssm.mamba2_forward(tssm.Mamba2(cfg), cfg,
@@ -455,8 +460,8 @@ def test_hybrid_and_ssm_prefill_call_the_ssd_block_once_per_layer(
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     calls = []
-    real = tssm.ssd_chunk_intra_bshp
-    monkeypatch.setattr(tssm, "ssd_chunk_intra_bshp",
+    real = tssm.ssd_chunked_bshp
+    monkeypatch.setattr(tssm, "ssd_chunked_bshp",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     with torch.inference_mode():
         state = model.init_decode_state(2, 40, device="cpu")
