@@ -1233,8 +1233,46 @@ def _ssd_err(got, ref, dtype):
     return err, ok, torch.equal(gy, ry) and torch.equal(gs, rs)
 
 
+def _heads(x, dt, a, b, c) -> tuple:
+    """The model's x [B,S,H,P], dt [B,S,H], a [H], b, c [B,S,N] as the
+    heads-layout views the SSD kernels read, as `ops.ssd_chunked_bshp`
+    forms them."""
+    return (x.transpose(1, 2), dt.transpose(1, 2),
+            a.expand(x.shape[0], x.shape[2]), b[:, None], c[:, None])
+
+
+def _ssd_block(x, dt, a, b, c, q) -> tuple:
+    """Steps 1 and 2 on the SSD kernel in the model's layout: (y
+    [B,S,H,P], states [B,L,H,P,N]) written through transposed views, as
+    the chunked SSD's Function writes them."""
+    from repro_torch.kernels import ssd_chunk_intra_heads
+    bs, s, h, p = x.shape
+    y = torch.empty((bs, s, h, p), dtype=x.dtype, device=x.device)
+    st = torch.empty((bs, s // q, h, p, b.shape[-1]), device=x.device)
+    ssd_chunk_intra_heads(*_heads(x, dt, a, b, c), q, y=y.transpose(1, 2),
+                          states=st.transpose(1, 2))
+    return y, st
+
+
+def _ssd_block_bwd(x, dt, a, b, c, dy, dst, q) -> None:
+    """The SSD block's backward in the model's layout (dy [B,S,H,P], dst
+    [B,L,H,P,N]), its gradients written through transposed views of
+    [B,S,...] tensors, as the chunked SSD Function's backward writes
+    them."""
+    from repro_torch.kernels import ssd_chunk_intra_bwd_heads
+    bs, s, h, p = x.shape
+    dx = torch.empty((bs, s, h, p), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((bs, s, h), device=x.device)
+    db, dc = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+              for t in (b, c))
+    ssd_chunk_intra_bwd_heads(
+        *_heads(x, dt, a, b, c), dy.transpose(1, 2), dst.transpose(1, 2), q,
+        dx=dx.transpose(1, 2), ddt=ddt.transpose(1, 2), db=db[:, None],
+        dc=dc[:, None])
+
+
 def phase_ssd_vs_plain(seed: int) -> dict:
-    from repro_torch.kernels import ssd_chunk_intra, ssd_chunk_intra_bshp
+    from repro_torch.kernels import ssd_chunk_intra
     gen = torch.Generator(device=DEV).manual_seed(seed)
     pns = [(16, 16), (32, 64), (64, 128), (128, 32), (64, 64), (128, 128)]
     dtypes = (torch.float32, torch.bfloat16)
@@ -1265,7 +1303,7 @@ def phase_ssd_vs_plain(seed: int) -> dict:
             x, dt, a, b, c = _ssd_inputs(gen, 2, 2 * q, 3, p, n, dtype)
             ref = _ssd_plain(x, dt, a, b, c, q)
             # the model's layout: transposed views, shared b and c
-            got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
+            got = _ssd_block(x, dt, a, b, c, q)
             torch.cuda.synchronize()
             check("bshp", got, ref, dtype, q, p, n, (x, dt, a, b, c))
             # the Pallas layout, on flat copies
@@ -1285,7 +1323,7 @@ def phase_ssd_vs_plain(seed: int) -> dict:
         bc = torch.cat([b[..., :1], b, c], dim=-1)
         b, c = bc[..., 1:1 + n], bc[..., 1 + n:]
         ref = _ssd_plain(x, dt, a, b, c, q)
-        got = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
+        got = _ssd_block(x, dt, a, b, c, q)
         torch.cuda.synchronize()
         check("unaligned_bc", got, ref, torch.bfloat16, q, p, n, None)
     assert not failures, f"SSD kernel disagrees with its plain version: " \
@@ -1353,17 +1391,16 @@ def _ssd_time(gen, m: dict, sets: int = 4) -> dict:
     inputs (tens of MB moved per call, beyond L2 in all).  kernel_ms is
     device time per call from a CUDA graph of the `sets` calls (the
     wrapper's host cost drops out); kernel_eager_ms has it."""
-    from repro_torch.kernels import ssd_chunk_intra_bshp
     inputs = [_ssd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
                           torch.bfloat16) for _ in range(sets)]
     err, ok, _ = _ssd_err(
-        ssd_chunk_intra_bshp(*inputs[0], m["q"]),
+        _ssd_block(*inputs[0], m["q"]),
         _ssd_plain(*inputs[0], m["q"]), torch.bfloat16)
     assert ok, (m, err)
 
     def kernel():
         for args in inputs:
-            ssd_chunk_intra_bshp(*args, m["q"])
+            _ssd_block(*args, m["q"])
 
     def plain():
         for args in inputs:
@@ -1413,9 +1450,8 @@ def _ssd_plain(x, dt, a, b, c, q) -> tuple:
     """The SSD block's plain version (`ref.ssd_chunk_intra_heads_reference`)
     in the model's layout, under autograd through its own ops: the
     kernels' yardstick."""
-    from repro_torch.kernels.ops import heads_views
     from repro_torch.kernels.ref import ssd_chunk_intra_heads_reference
-    y, st = ssd_chunk_intra_heads_reference(*heads_views(x, dt, a, b, c), q)
+    y, st = ssd_chunk_intra_heads_reference(*_heads(x, dt, a, b, c), q)
     return y.transpose(1, 2), st.transpose(1, 2)
 
 
@@ -1589,8 +1625,7 @@ def _ssd_bwd_time(gen, m: dict, sets: int = 2) -> dict:
     alone, device time per call from a CUDA graph over `sets` input sets
     (eager in kernel_eager_ms) beside the bound, the plain autograd
     backward's time and the forward kernel's."""
-    from repro_torch.kernels import SSD_BWD_KERNEL, ssd_chunk_intra_bshp
-    from repro_torch.kernels.ops import ssd_chunk_intra_bshp_bwd
+    from repro_torch.kernels import SSD_BWD_KERNEL
     sets_in = [_ssd_bwd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
                                m["q"], torch.bfloat16) for _ in range(sets)]
     ins, dy, dfin = sets_in[0]
@@ -1613,7 +1648,7 @@ def _ssd_bwd_time(gen, m: dict, sets: int = 2) -> dict:
 
     def kernel():
         for (ins, dy, _), dst in zip(sets_in, dsts):
-            ssd_chunk_intra_bshp_bwd(*ins, dy, dst, m["q"])
+            _ssd_block_bwd(*ins, dy, dst, m["q"])
 
     before = SSD_BWD_KERNEL.launches
     kernel_ms = graph_ms(kernel, sets)
@@ -1623,7 +1658,7 @@ def _ssd_bwd_time(gen, m: dict, sets: int = 2) -> dict:
 
     def forward():
         for ins, _, _ in sets_in:
-            ssd_chunk_intra_bshp(*ins, m["q"])
+            _ssd_block(*ins, m["q"])
     fwd_ms = graph_ms(forward, sets)
     # plain autograd: the graph of the plain version, its backward timed
     ins, dy, _ = sets_in[0]
@@ -1816,7 +1851,6 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
     beside the bound; then the autograd Function's backward on the same
     views (the leaves keep their strides) against plain autograd within
     SSD_BWD_TOL, bit-equal run to run."""
-    from repro_torch.kernels import ssd_chunk_intra_bshp
     from repro_torch.kernels.ssd_scan import dense_if_unaligned
     m = SSD_MAIN
     full = [_ssd_inputs(gen, m["b"], m["s"], m["h"], m["p"], m["n"],
@@ -1837,7 +1871,7 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
         for layout in ("head_slice", "mixer"):
             inputs = [views(*f, layout) for f in full]
             err, ok, _ = _ssd_err(
-                ssd_chunk_intra_bshp(*inputs[0], m["q"]),
+                _ssd_block(*inputs[0], m["q"]),
                 _ssd_plain(*inputs[0], m["q"]),
                 torch.bfloat16)
             assert ok, (hl, layout, err)
@@ -1864,7 +1898,7 @@ def _ssd_local_heads(gen, sets: int = 4) -> list:
 
             def kernel():
                 for args in inputs:
-                    ssd_chunk_intra_bshp(*args, m["q"])
+                    _ssd_block(*args, m["q"])
             kernel_ms = graph_ms(kernel, sets)
             local = dict(m, h=hl)
             flops, nbytes, bound = _ssd_bound(local)

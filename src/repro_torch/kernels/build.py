@@ -8,9 +8,11 @@ seconds (ssd_chunk.cu, forward and backward, about half a minute).  A
 build runs at a kernel's first launch, never at import; `build(name,
 force=True)` rebuilds.
 
-`Kernel` binds one library's C entry point and counts its launches.  Every
-entry point returns the CUDA error of its launch, and every source exports
-`repro_cuda_error_string` to name it.
+`Kernel` binds one library's C entry point, launches it on a device's
+current stream and counts its launches.  Every entry point returns the
+CUDA error of its launch, and every source exports `repro_cuda_error_string`
+to name it.  The wrappers' other shared plumbing is here too: dtype codes,
+the bfloat16 loads' 16-byte row test, the way into a custom op.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +37,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # libraries build as before.
 LIBRARY_FLAGS = {"ssd_chunk": ["--split-compile=0"],
                  "ssd_state": ["--split-compile=0"]}
+
+
+# The dtype argument of every C entry point (float16: chunk_accum only).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# What the attention and SSD kernels take.
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+# The types of a plain call's arguments (`call`): any other, such as a
+# tensor subclass, must see the custom op.
+_PLAIN_ARGS = frozenset((torch.Tensor, int, float, bool, type(None)))
 
 
 def nvcc_flags(name: str) -> list:
@@ -120,15 +134,54 @@ class Kernel:
                 f"({lib.repro_cuda_error_string(err).decode()})")
         self.launches += 1
 
+    def launch_on(self, device: torch.device, args: tuple) -> None:
+        """`launch(*args)` on `device`'s current stream."""
+        with torch.cuda.device(device):
+            self.launch(*args, torch.cuda.current_stream(device).cuda_stream)
 
-def through_op(*tensors) -> bool:
-    """Whether a wrapper enters its custom op: under a dispatch mode (fake
-    tensors, `analysis.hlo_count`'s counter) or for a tensor subclass,
-    which must see the op (its fake implementation, its FLOP formula).  A
-    plain call runs the op's body directly: the op's dispatch added ~44 us
-    of host time to each flash call on an "NVIDIA H100 80GB HBM3, 700.00
-    W" (chip_smoke.py phase 3's host_cost)."""
-    import torch
-    from torch.utils._python_dispatch import _get_current_dispatch_mode
-    return _get_current_dispatch_mode() is not None or any(
-        type(t) is not torch.Tensor for t in tensors)
+
+def rows_aligned(t: torch.Tensor, strides: tuple) -> bool:
+    """The bfloat16 kernels' 16-byte loads: an aligned start, and (batch,
+    head, seq) strides that keep every row aligned."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in strides)
+
+
+def head_strides(t: torch.Tensor, h: int) -> tuple:
+    """(batch, head, seq) strides of b or c [B,G,S,N] as the SSD kernels
+    read them: a head stride of 0 when every head reads one b, c (G = 1)."""
+    return t.stride(0), t.stride(1) if t.shape[1] == h else 0, t.stride(2)
+
+
+def contiguous_block(t: torch.Tensor) -> bool:
+    """The [P, N] blocks of SSD states contiguous and 16-byte aligned with
+    their strides (the kernels read them in rows of 16 bytes)."""
+    return (t.stride(-1) == 1 and t.stride(-2) == t.shape[-1]
+            and t.data_ptr() % 16 == 0
+            and all(st % 4 == 0 for st in t.stride()[:3]))
+
+
+def mutating_op(name: str, body, mutates_args: tuple) -> None:
+    """`body` as the custom op `name`, which writes `mutates_args` in place
+    and returns nothing; so its fake implementation does nothing."""
+    op = torch.library.custom_op(name, body, mutates_args=mutates_args)
+    op.register_fake(lambda *args, **kwargs: None)
+
+
+def copy_into(outs: tuple, values: tuple) -> None:
+    """A wrapper's CPU branch: its plain version's values copied into the
+    outputs it writes (None: an output this call does not have)."""
+    for out, value in zip(outs, values):
+        if out is not None:
+            out.copy_(value)
+
+
+def call(op, body, *args):
+    """A wrapper's way into its kernel: `op(*args)`, the custom op, under a
+    dispatch mode (fake tensors, `analysis.hlo_count`'s counter) or for a
+    tensor subclass, which must see the op (its fake implementation, its
+    FLOP formula); else `body(*args)`, the op's body, directly: the op's
+    dispatch added ~44 us of host time to each flash call on an "NVIDIA
+    H100 80GB HBM3, 700.00 W" (chip_smoke.py phase 3's host_cost)."""
+    through = _get_current_dispatch_mode() is not None or any(
+        type(t) not in _PLAIN_ARGS for t in args)
+    return (op if through else body)(*args)

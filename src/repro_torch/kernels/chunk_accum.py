@@ -24,7 +24,6 @@ import torch
 from . import build
 from .ref import chunk_accum_indexed_reference, chunk_accum_reference
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # repro_chunk_accum's C parameters: acc, update, dtype, idx, rows, cols,
 # skip, stream
 ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -39,7 +38,7 @@ def _check(acc: torch.Tensor, update: torch.Tensor) -> None:
                          f"{tuple(update.shape)} must be [*, C] with one C")
     if acc.dtype != torch.float32:
         raise ValueError(f"acc must be float32, got {acc.dtype}")
-    if update.dtype not in _DTYPES:
+    if update.dtype not in build.DTYPE_CODES:
         raise ValueError(f"update must be float32, bfloat16 or float16, got "
                          f"{update.dtype}")
     if acc.device != update.device:
@@ -54,11 +53,9 @@ def _launch(acc: torch.Tensor, update: torch.Tensor, idx_ptr: int,
         raise ValueError("acc and update must be contiguous")
     if update.numel() == 0:
         return
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        KERNEL.launch(acc.data_ptr(), update.data_ptr(),
-                      _DTYPES[update.dtype], idx_ptr, update.shape[0],
-                      update.shape[1], skip, stream)
+    KERNEL.launch_on(acc.device, (
+        acc.data_ptr(), update.data_ptr(), build.DTYPE_CODES[update.dtype],
+        idx_ptr, update.shape[0], update.shape[1], skip))
 
 
 def chunk_accum(acc: torch.Tensor, update: torch.Tensor) -> torch.Tensor:

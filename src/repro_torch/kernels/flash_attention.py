@@ -24,7 +24,6 @@ from . import build
 from .ref import mha_reference
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # repro_flash_attention_fwd's C parameters: q, k, v, o; dtype, b, h, hkv,
 # sq, skv, d; the strides (b, h, s) of q, k, v, o; causal, window,
 # prefix_len; logit_cap; stream
@@ -45,7 +44,8 @@ def _check(q, k, v, window, prefix_len, logit_cap) -> None:
     hkv = k.shape[1]
     if hkv == 0 or h % hkv:
         raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+    if not (q.dtype == k.dtype == v.dtype) or \
+            q.dtype not in build.COMPUTE_DTYPES:
         raise ValueError(f"q, k, v must share float32 or bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -60,12 +60,6 @@ def _check(q, k, v, window, prefix_len, logit_cap) -> None:
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
     if logit_cap is not None and not logit_cap > 0:
         raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
-
-
-def _rows_aligned(t: torch.Tensor) -> bool:
-    """The bfloat16 kernel's 16-byte loads: an aligned start, and strides
-    that keep every row aligned."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
 def launch_args(q, k, v, out, *, causal: bool, window: Optional[int],
@@ -83,11 +77,11 @@ def launch_args(q, k, v, out, *, causal: bool, window: Optional[int],
         raise ValueError(f"empty attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
     if q.dtype == torch.bfloat16 and not all(
-            _rows_aligned(t) for t in (q, k, v, out)):
+            build.rows_aligned(t, t.stride()[:3]) for t in (q, k, v, out)):
         raise ValueError("bfloat16 rows of q, k, v and out must start on "
                          "16 bytes")
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, h, hkv, sq, skv, d,
+            build.DTYPE_CODES[q.dtype], b, h, hkv, sq, skv, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
             int(causal), window or 0, prefix_len, logit_cap or 0.0)
@@ -107,10 +101,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window, prefix_len, logit_cap)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    args = (q, k, v, causal, window or 0, prefix_len, logit_cap or 0.0)
-    if build.through_op(q, k, v):
-        return torch.ops.repro_torch.flash_attention(*args)
-    return _flash(*args)
+    return build.call(torch.ops.repro_torch.flash_attention, _flash, q, k, v,
+                      causal, window or 0, prefix_len, logit_cap or 0.0)
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,14 +114,13 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mha_reference(q, k, v, causal=causal, window=window,
                              prefix_len=prefix_len, logit_cap=logit_cap)
     if q.dtype == torch.bfloat16:
-        q, k, v = (t if _rows_aligned(t) else
+        q, k, v = (t if build.rows_aligned(t, t.stride()[:3]) else
                    t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
     out = torch.empty_like(q)
     args = launch_args(q, k, v, out, causal=causal, window=window,
                        prefix_len=prefix_len, logit_cap=logit_cap)
-    with torch.cuda.device(q.device):
-        KERNEL.launch(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    KERNEL.launch_on(q.device, args)
     return out
 
 

@@ -1,4 +1,6 @@
-"""Layout adapters between the models and the kernels."""
+"""Layout adapters between the models and the kernels.  `ssd_chunked_bshp`
+is the chunked SSD's one entry: it makes the dtype casts, and `_chunked`
+forms the kernels' heads-layout views once for forward and backward."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -25,54 +27,30 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
-def ssd_chunk_intra_bshp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                         b: torch.Tensor, c: torch.Tensor, chunk: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Steps 1 and 2 of `ssd_chunked` in its own layout: x [B,S,H,P], dt
-    [B,S,H], a [H], b, c [B,S,N] shared by every head.  Returns (y_diag
-    [B,S,H,P] in x's dtype, states [B,L,H,P,N] float32), L = S/chunk.
-
-    The kernel reads x and dt as transposed views, b and c with a head stride
-    of 0 and a as [B,H] with a batch stride of 0, and writes y and the states
-    into [B,S,H,P] and [B,L,H,P,N] tensors through transposed views: nothing
-    is copied.  Inputs that require grad are refused: under autograd the
-    block runs inside `ssd_chunked_bshp`'s Function.  On CPU tensors the
-    wrapper computes the plain version, in float64 too."""
-    bs, s, h, p = x.shape
-    n = b.shape[-1]
-    y = torch.empty((bs, s, h, p), dtype=x.dtype, device=x.device)
-    states = torch.empty((bs, s // chunk, h, p, n), dtype=work_dtype(x),
-                         device=x.device)
-    ssd_chunk_intra_heads(*heads_views(x, dt, a, b, c), chunk,
-                          y=y.transpose(1, 2), states=states.transpose(1, 2))
-    return y, states
-
-
-def heads_views(x, dt, a, b, c) -> tuple:
-    """The [B,S,...] tensors as views in the layout of
-    `ssd_scan.ssd_chunk_intra_heads`."""
-    bs, _, h, _ = x.shape
-    return (x.transpose(1, 2), dt.transpose(1, 2), a.expand(bs, h),
-            b[:, None], c[:, None])
-
-
 def ssd_chunked_bshp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, c: torch.Tensor, chunk: int,
                      init: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All four steps of the chunked SSD (`models/ssm.py:ssd_chunked`) on
     the kernels, in its layout: x [B,S,H,P], dt [B,S,H], a [H], b, c
-    [B,S,N] shared by every head (x, b, c in the compute dtype; dt, a in
-    the work dtype), init [B,H,P,N] (work dtype) or None.  Returns (y
+    [B,S,N] shared by every head, init [B,H,P,N] or None.  Returns (y
     [B,S,H,P] in x's dtype, final state [B,H,P,N] in the work dtype).
 
-    Steps 1 and 2 are the SSD block (`ssd_chunk_intra_bshp`), steps 3 and
-    4 the state passes (`ssd_state.ssd_state_heads`), which add the read-out
-    into the block's y in place.  Under autograd (grad enabled, an input
-    that requires grad) the call is `SSDChunked`: those kernels, then the
-    state passes' backward and the block's backward.  On CPU tensors the
-    wrappers compute the plain versions, in float64 too (gradcheck's
-    dtype)."""
+    The dtype contract: x sets the compute dtype, into which b and c are
+    cast; dt, a and init are cast to the work dtype (`ref.work_dtype`:
+    float32, float64 for float64 x), in which the kernels sum.  Below this
+    call nothing is cast again.
+
+    Steps 1 and 2 are the SSD block (`ssd_scan.ssd_chunk_intra_heads`),
+    steps 3 and 4 the state passes (`ssd_state.ssd_state_heads`), which
+    add the read-out into the block's y in place.  Under autograd (grad
+    enabled, an input that requires grad) the call is `SSDChunked`: those
+    kernels, then the state passes' backward and the block's backward.  On
+    CPU tensors the wrappers compute the plain versions, in float64 too
+    (gradcheck's dtype)."""
+    ft = work_dtype(x)
+    dt, a, b, c = dt.to(ft), a.to(ft), b.to(x.dtype), c.to(x.dtype)
+    init = None if init is None else init.to(ft)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dt, a, b, c, init)):
@@ -81,70 +59,65 @@ def ssd_chunked_bshp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def _chunked(x, dt, a, b, c, chunk: int, init) -> tuple:
-    """(y, final, entering, carries, cs): the forward and what the
-    backward needs of it."""
-    y, states = ssd_chunk_intra_bshp(x, dt, a, b, c, chunk)
-    bs, _, h, _ = x.shape
+    """(y, final, heads, entering, carries, cs): the forward, and what the
+    backward needs of it; `heads` are x, dt, a, b, c as the kernels read
+    them, x [B,H,S,P] and dt [B,H,S] transposed views, a [B,H] with a
+    batch stride of 0, b and c [B,1,S,N] with a head stride of 0 (every
+    head reads them).  The block writes y and the states into [B,S,H,P]
+    and [B,L,H,P,N] tensors through transposed views: nothing is copied."""
+    bs, s, h, p = x.shape
+    heads = (x.transpose(1, 2), dt.transpose(1, 2), a.expand(bs, h),
+             b[:, None], c[:, None])
+    y = torch.empty((bs, s, h, p), dtype=x.dtype, device=x.device)
+    states = torch.empty((bs, s // chunk, h, p, b.shape[-1]),
+                         dtype=work_dtype(x), device=x.device)
+    ssd_chunk_intra_heads(*heads, chunk, y=y.transpose(1, 2),
+                          states=states.transpose(1, 2))
     final, entering, carries, cs = ssd_state_heads(
-        y.transpose(1, 2), states.transpose(1, 2), dt.transpose(1, 2),
-        a.expand(bs, h), c[:, None], chunk, init)
-    return y, final, entering, carries, cs
+        y.transpose(1, 2), states.transpose(1, 2), heads[1], heads[2],
+        heads[4], chunk, init)
+    return y, final, heads, entering, carries, cs
 
 
 class SSDChunked(torch.autograd.Function):
     """`ssd_chunked_bshp` under autograd.  The forward runs the kernels on
-    the detached inputs (the same calls as without grad) and saves x, dt,
-    a, b, c, the entering states, their float32 carries (bfloat16 only:
-    the float32 entering states are their own) and cs; the backward is the
-    state passes' backward (dstates, the gradient of cs, c's read-out
-    term and the initial state's gradient), then the block's backward,
-    which takes the gradient of cs into its reverse cumsum and c's term
-    into dc."""
+    the detached inputs (the same calls as without grad) and saves their
+    heads-layout views, the entering states, their float32 carries
+    (bfloat16 only: the float32 entering states are their own) and cs;
+    the backward is the state passes' backward (dstates, the gradient of
+    cs, c's read-out term and the initial state's gradient), then the
+    block's backward, which takes the gradient of cs into its reverse
+    cumsum and c's term into dc, writing dx, ddt, db and dc through
+    transposed views of [B,S,...] tensors."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b, c, chunk: int, init):
         ctx.set_materialize_grads(False)
         ctx.chunk = chunk
-        y, final, entering, carries, cs = _chunked(
+        y, final, heads, entering, carries, cs = _chunked(
             *(t.detach() for t in (x, dt, a, b, c)), chunk,
             None if init is None else init.detach())
-        ctx.save_for_backward(x, dt, a, b, c, entering,
+        ctx.save_for_backward(*heads, entering,
                               None if carries is entering else carries, cs)
         return y, final
 
     @staticmethod
     def backward(ctx, dy, dfinal):
-        x, dt, a, b, c, entering, carries, cs = (
-            None if t is None else t.detach() for t in ctx.saved_tensors)
+        x, dt, a, b, c, entering, carries, cs = ctx.saved_tensors
+        bs, h, s, p = x.shape
         if dy is None:
-            dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+            dy = x.new_zeros((bs, s, h, p))
         elif dy.stride(-1) != 1:
             dy = dy.contiguous()
         dstates, dcs, dc_state, dinit = ssd_state_bwd_heads(
             dy.transpose(1, 2), dfinal, entering if carries is None
-            else carries, entering, cs, c[:, None], ctx.chunk)
-        grads = ssd_chunk_intra_bshp_bwd(x, dt, a, b, c, dy,
-                                         dstates.transpose(1, 2), ctx.chunk,
-                                         dcum=dcs, dc_extra=dc_state)
-        return grads + (None, dinit if ctx.needs_input_grad[6] else None)
-
-
-def ssd_chunk_intra_bshp_bwd(x, dt, a, b, c, dy, dstates, chunk: int,
-                             dcum=None, dc_extra=None
-                             ) -> Tuple[torch.Tensor, ...]:
-    """The SSD block's backward in `ssd_chunk_intra_bshp`'s layout: the
-    gradients (dx, ddt, da [H], db, dc) of its inputs, given dy [B,S,H,P]
-    and dstates [B,L,H,P,N], and, from steps 3 and 4, dcum [B,H,S] (the
-    gradient of cumsum(dt a)) and dc_extra [B,1,S,N] (c's read-out term)
-    or None."""
-    bs, s, h, p = x.shape
-    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    ddt = torch.empty((bs, s, h), dtype=work_dtype(x), device=x.device)
-    db = torch.empty(b.shape, dtype=b.dtype, device=b.device)
-    dc = torch.empty(c.shape, dtype=c.dtype, device=c.device)
-    _, _, da, _, _ = ssd_chunk_intra_bwd_heads(
-        *heads_views(x, dt, a, b, c), dy.transpose(1, 2),
-        dstates.transpose(1, 2), chunk, dx=dx.transpose(1, 2),
-        ddt=ddt.transpose(1, 2), db=db[:, None], dc=dc[:, None], dcum=dcum,
-        dc_extra=dc_extra)
-    return dx, ddt.to(dt.dtype), da.sum(0).to(a.dtype), db, dc
+            else carries, entering, cs, c, ctx.chunk)
+        dx = x.new_empty((bs, s, h, p))
+        ddt = dt.new_empty((bs, s, h))
+        db, dc = (t.new_empty((bs, s, t.shape[-1])) for t in (b, c))
+        _, _, da, _, _ = ssd_chunk_intra_bwd_heads(
+            x, dt, a, b, c, dy.transpose(1, 2), dstates, ctx.chunk,
+            dx=dx.transpose(1, 2), ddt=ddt.transpose(1, 2), db=db[:, None],
+            dc=dc[:, None], dcum=dcs, dc_extra=dc_state)
+        return (dx, ddt, da.sum(0), db, dc, None,
+                dinit if ctx.needs_input_grad[6] else None)

@@ -73,28 +73,6 @@ def ssd_chunk_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return torch.einsum("ij,ijh,jhp->ihp", scores, ll, xdt)
 
 
-def ssd_chunk_intra_reference(x: torch.Tensor, dt: torch.Tensor,
-                              a: torch.Tensor, b: torch.Tensor,
-                              c: torch.Tensor, chunk: int
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The intra-chunk SSD of every (batch*head, chunk) block: what the
-    Pallas kernel `_ssd_chunk_kernel` computes.
-    x: [BH,S,P], dt: [BH,S], a: [BH], b, c: [BH,S,N], S a multiple of chunk.
-    Returns (y_diag [BH,S,P] in x's dtype, states [BH,S//chunk,P,N] f32):
-
-        L[i,j] = exp(cum[i] - cum[j]) for i >= j, else 0, cum = cumsum(dt*a)
-        y[i]   = sum_j (C[i].B[j]) L[i,j] x[j] dt[j]
-        state  = sum_j exp(cum[Q-1] - cum[j]) (x[j] dt[j]) (x) B[j]
-
-    in float32, except that the cumulative sum of dt*a is taken in float64
-    and each difference is rounded to float32 once: a float32 cumsum over a
-    512-row chunk carries errors of ~1e-4 into L, which would depend on the
-    order of the sum; the kernel computes the same float64 sum."""
-    y, states = ssd_chunk_intra_heads_reference(
-        x[:, None], dt[:, None], a[:, None], b[:, None], c[:, None], chunk)
-    return y[:, 0], states[:, 0]
-
-
 def work_dtype(x: torch.Tensor) -> torch.dtype:
     """The SSD block's arithmetic type: float32, or float64 for float64
     inputs (the CPU tests' oracle)."""
@@ -108,8 +86,6 @@ def _ssd_chunk_terms(x, dt, a, b, c, chunk):
     [B,G,L,Q,Q], xdt, decay [B,H,L,Q]) in the work dtype."""
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[-1]
-    if s % chunk:
-        raise ValueError(f"seq {s} must divide chunk {chunk}")
     l = s // chunk
     ft = work_dtype(x)
     xf = x.to(ft).reshape(bs, h, l, chunk, p)
@@ -136,13 +112,25 @@ def ssd_chunk_intra_heads_reference(x: torch.Tensor, dt: torch.Tensor,
                                     a: torch.Tensor, b: torch.Tensor,
                                     c: torch.Tensor, chunk: int
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ssd_chunk_intra_reference on the heads layout of
+    """The intra-chunk SSD of every (batch, head, chunk) block: what the
+    Pallas kernel `_ssd_chunk_kernel` computes, in the heads layout of
     `ssd_scan.ssd_chunk_intra_heads`: x [B,H,S,P], dt [B,H,S], a [B,H],
-    b, c [B,G,S,N] with G = H or 1, any broadcastable strides.  Returns
-    (y [B,H,S,P], states [B,H,L,P,N] f32).  With G = 1 (every head reads
-    the same b, c, as Mamba2's do) C.B^T is computed once per batch row
-    and chunk and shared by the heads, as the reference model computes
-    it.  float64 inputs are computed in float64 (states too)."""
+    b, c [B,G,S,N] with G = H or 1, any broadcastable strides, S a
+    multiple of chunk.  Returns (y_diag [B,H,S,P] in x's dtype, states
+    [B,H,L,P,N] f32):
+
+        L[i,j] = exp(cum[i] - cum[j]) for i >= j, else 0, cum = cumsum(dt*a)
+        y[i]   = sum_j (C[i].B[j]) L[i,j] x[j] dt[j]
+        state  = sum_j exp(cum[Q-1] - cum[j]) (x[j] dt[j]) (x) B[j]
+
+    in float32, except that the cumulative sum of dt*a is taken in float64
+    and each difference is rounded to float32 once: a float32 cumsum over a
+    512-row chunk carries errors of ~1e-4 into L, which would depend on the
+    order of the sum; the kernel computes the same float64 sum.  With G = 1
+    (every head reads the same b, c, as Mamba2's do) C.B^T is computed
+    once per batch row and chunk and shared by the heads, as the reference
+    model computes it.  float64 inputs are computed in float64 (states
+    too)."""
     bs, h, s, p = x.shape
     _, _, _, bf, _, _, ll, scores, xdt, decay = _ssd_chunk_terms(
         x, dt, a, b, c, chunk)
@@ -241,8 +229,6 @@ def ssd_state_reference(y: torch.Tensor, states: torch.Tensor,
     the last three what the backward needs."""
     bs, h, s, p = y.shape
     g, n = c.shape[1], c.shape[-1]
-    if s % chunk:
-        raise ValueError(f"seq {s} must divide chunk {chunk}")
     l = s // chunk
     ft, cdt = work_dtype(y), y.dtype
     da = dt.to(ft) * a.to(ft)[..., None]                    # [B,H,S]

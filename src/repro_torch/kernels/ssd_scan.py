@@ -16,33 +16,35 @@ The backward kernel, `repro_ssd_chunk_bwd` in the same source, has no
 Pallas counterpart (the Pallas kernel has no backward): it was added so
 that training runs the block on the card.
 `ssd_chunk_intra_bwd_heads(x, dt, a, b, c, dy, dstates, chunk)` takes the
-heads layout and returns the gradients of x, dt, a, b and c.
-`ops.ssd_chunk_intra_bshp` joins the two under autograd.
+heads layout and returns the gradients of x, dt, a, b and c.  Training
+reaches both through `ops.ssd_chunked_bshp`, which makes the dtype casts:
+dt and a come in the work dtype, and the card refuses others.
 
 On CUDA tensors each wrapper launches its kernel (building the library at
 first use) or raises; on CPU tensors each computes its plain version in
 `ref.py`, which also takes float64 (the CPU tests' gradcheck).  bfloat16
 runs on the tensor cores (wgmma), float32 on the CUDA cores;
 `launch_args` and `bwd_launch_args` are the launch plans.
-`KERNEL.launches` and `BWD_KERNEL.launches` count launches.  The forward
-wrapper refuses inputs that require grad, so no gradient is silently lost
-by a direct call: autograd reaches the kernels through `ops`.
+`KERNEL.launches` and `BWD_KERNEL.launches` count launches.  The wrappers
+refuse inputs that require grad, so no gradient is silently lost by a
+direct call.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Callable, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import build
+from .build import contiguous_block, head_strides, rows_aligned
 from .ref import (ssd_chunk_intra_bwd_reference,
                   ssd_chunk_intra_heads_reference, work_dtype)
 
 DIMS = (16, 32, 64, 128)        # head dims P and state dims N it takes
 MAX_CHUNK = 4096
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # repro_ssd_chunk_fwd's C parameters: x, dt, a, b, c, y, states, work;
 # dtype, batch, heads, seqlen, chunk, p, n; the strides of x, dt (b, h, s),
 # a (b, h), b, c, y (b, h, s), states (b, h, chunk); stream
@@ -53,7 +55,9 @@ TILE = 64                       # the kernel's rows per tile
 KERNEL = build.Kernel("ssd_chunk", "repro_ssd_chunk_fwd", ARGTYPES)
 
 
-def _check(x, dt, a, b, c, chunk) -> None:
+def _check(x, dt, a, b, c, chunk, *more) -> None:
+    """x, dt, a, b, c in the heads layout, and what `check_call` refuses of
+    them and of `more`."""
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[-1]
     if dt.shape != (bs, h, s) or a.shape != (bs, h):
@@ -63,31 +67,66 @@ def _check(x, dt, a, b, c, chunk) -> None:
             or g not in (1, h):
         raise ValueError(f"b {tuple(b.shape)} / c {tuple(c.shape)} do not "
                          f"match x {tuple(x.shape)}")
+    check_dtypes("x, b, c", x, b, c)
+    check_call(s, chunk, x, dt, a, b, c, *more)
+
+
+def check_dtypes(names: str, *tensors) -> None:
+    """`tensors` (named `names`) share float32 or bfloat16, or float64 on
+    the CPU (the plain versions')."""
+    t = tensors[0]
+    if len({u.dtype for u in tensors}) != 1 or not (
+            t.dtype in build.COMPUTE_DTYPES
+            or t.dtype == torch.float64 and t.device.type == "cpu"):
+        raise ValueError(f"{names} must share float32 or bfloat16 (or "
+                         f"float64 on the CPU), got "
+                         f"{[u.dtype for u in tensors]}")
+
+
+def check_call(s: int, chunk: int, *tensors) -> None:
+    """What every SSD wrapper refuses: a chunk that does not divide the
+    sequence, tensors on more than one device or on another than cuda or
+    cpu, and inputs that require grad (None: an input not given)."""
     if chunk < 1 or s % chunk:
         raise ValueError(f"seq {s} must divide chunk {chunk}")
-    if not (x.dtype == b.dtype == c.dtype) or x.dtype not in _DTYPES and not (
-            x.dtype == torch.float64 and x.device.type == "cpu"):
-        raise ValueError(f"x, b, c must share float32 or bfloat16 (or "
-                         f"float64 on the CPU), got {x.dtype}, {b.dtype}, "
-                         f"{c.dtype}")
-    if len({t.device for t in (x, dt, a, b, c)}) != 1:
-        raise ValueError("x, dt, a, b, c must be on one device")
-    if any(t.requires_grad for t in (x, dt, a, b, c)):
+    given = [t for t in tensors if t is not None]
+    if len({t.device for t in given}) != 1:
+        raise ValueError("the SSD kernels' tensors must be on one device")
+    if given[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the SSD kernels run on cuda or cpu, not "
+                         f"{given[0].device}")
+    if any(t.requires_grad for t in given):
         raise ValueError("a direct call of the SSD kernels has no "
                          "backward: inputs that require grad go through "
-                         "repro_torch.kernels.ops.ssd_chunk_intra_bshp")
+                         "repro_torch.kernels.ops.ssd_chunked_bshp")
 
 
-def _head_strides(t: torch.Tensor, h: int) -> tuple:
-    """(batch, head, seq) strides of b or c [B,G,S,N] as the kernel reads
-    them: a head stride of 0 when every head reads one b, c (G = 1)."""
-    return t.stride(0), t.stride(1) if t.shape[1] == h else 0, t.stride(2)
+def output(name: str, out: Optional[torch.Tensor], shape: tuple,
+           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A wrapper's output `name`: `out` where the caller gave one (a view
+    of that shape and dtype on `device`), else a new tensor."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if out.shape != shape or out.dtype != dtype or out.device != device:
+        raise ValueError(f"{name} must be {dtype} {tuple(shape)} on "
+                         f"{device}, got {out.dtype} {tuple(out.shape)}")
+    return out
 
 
-def _rows_aligned(t: torch.Tensor, strides: tuple) -> bool:
-    """The bfloat16 kernel's 16-byte loads: an aligned start, and strides
-    that keep every row aligned."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in strides)
+def check_dims(p: int, n: int, chunk: int) -> None:
+    """The head and state dims and the chunk the SSD kernels take."""
+    if p not in DIMS or n not in DIMS:
+        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+
+
+def check_groups(h: int, g: int, splits: int) -> None:
+    """b and c (or c) in 1 or H groups, and a backward's head splits."""
+    if g not in (1, h):
+        raise ValueError(f"the groups of b, c must be 1 or {h}, not {g}")
+    if not 1 <= splits <= h // g:
+        raise ValueError(f"splits {splits} must be in [1, {h // g}]")
 
 
 def dense_if_unaligned(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -96,8 +135,8 @@ def dense_if_unaligned(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     where its rows do not start on 16 bytes (what the bfloat16 kernel's
     loads need), else as given."""
     h = x.shape[1]
-    return (x if _rows_aligned(x, x.stride()[:3]) else x.contiguous(),
-            *(t if _rows_aligned(t, _head_strides(t, h)) else t.contiguous()
+    return (x if rows_aligned(x, x.stride()[:3]) else x.contiguous(),
+            *(t if rows_aligned(t, head_strides(t, h)) else t.contiguous()
               for t in (b, c)))
 
 
@@ -116,15 +155,12 @@ def launch_args(x, dt, a, b, c, y, states, work, chunk: int) -> tuple:
     memory."""
     bs, h, s, p = x.shape
     n = b.shape[-1]
-    if p not in DIMS or n not in DIMS:
-        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+    check_dims(p, n, chunk)
     if dt.dtype != torch.float32 or a.dtype != torch.float32:
         raise ValueError("dt and a must be float32")
-    bst, cst = _head_strides(b, h), _head_strides(c, h)
+    bst, cst = head_strides(b, h), head_strides(c, h)
     if x.dtype == torch.bfloat16 and not all(
-            _rows_aligned(t, st) for t, st in
+            rows_aligned(t, st) for t, st in
             ((x, x.stride()[:3]), (b, bst), (c, cst), (y, y.stride()[:3]))):
         raise ValueError("bfloat16 rows of x, b, c and y must start on "
                          "16 bytes")
@@ -135,7 +171,8 @@ def launch_args(x, dt, a, b, c, y, states, work, chunk: int) -> tuple:
                          f"{work_bytes(x, chunk)} bytes")
     return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
             c.data_ptr(), y.data_ptr(), states.data_ptr(),
-            None if work is None else work.data_ptr(), _DTYPES[x.dtype],
+            None if work is None else work.data_ptr(),
+            build.DTYPE_CODES[x.dtype],
             bs, h, s, chunk, p, n, *x.stride()[:3], *dt.stride(),
             *a.stride(), *bst, *cst, *y.stride()[:3], *states.stride()[:3])
 
@@ -145,43 +182,30 @@ def ssd_chunk_intra_heads(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                           y: Optional[torch.Tensor] = None,
                           states: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B,H,S,P]; dt: [B,H,S]; a: [B,H]; b, c: [B,G,S,N] with G = H or 1
-    (every head reads the same b, c); any strides with the last dim
-    contiguous, on every device (a stride of 0 broadcasts).  Returns (y
-    [B,H,S,P] in x's dtype, states [B,H,S/chunk,P,N] float32, float64 for
-    float64 inputs, which only the CPU's plain version takes), written into
-    `y` and `states` when given (views of those shapes, last dims
-    contiguous).  On the card, a bfloat16 x, b or c whose rows do not start
-    on 16 bytes is copied to a dense tensor first, and such a `y` is
-    written through one.  Under a dispatch mode (fake tensors, a counter)
-    it runs through the custom op `repro_torch::ssd_chunk_intra_heads`; a
-    plain call runs the op's body directly."""
+    """x: [B,H,S,P]; dt: [B,H,S] and a: [B,H] in the work dtype; b, c:
+    [B,G,S,N] with G = H or 1 (every head reads the same b, c); any
+    strides with the last dim contiguous, on every device (a stride of 0
+    broadcasts).  Returns (y [B,H,S,P] in x's dtype, states
+    [B,H,S/chunk,P,N] float32, float64 for float64 inputs, which only the
+    CPU's plain version takes), written into `y` and `states` when given
+    (views of those shapes, last dims contiguous).  On the card, a
+    bfloat16 x, b or c whose rows do not start on 16 bytes is copied to a
+    dense tensor first, and such a `y` is written through one.  Under a
+    dispatch mode (fake tensors, a counter) it runs through the custom op
+    `repro_torch::ssd_chunk_intra_heads`; a plain call runs the op's body
+    directly."""
     _check(x, dt, a, b, c, chunk)
     bs, h, s, p = x.shape
     n = b.shape[-1]
-    shape_y, shape_st = (bs, h, s, p), (bs, h, s // chunk, p, n)
-    acc = work_dtype(x)
-    for name, out, shape, dtype in (("y", y, shape_y, x.dtype),
-                                    ("states", states, shape_st, acc)):
-        if out is not None and (out.shape != shape or out.dtype != dtype
-                                or out.device != x.device):
-            raise ValueError(f"{name} must be {dtype} {shape} on {x.device}, "
-                             f"got {out.dtype} {tuple(out.shape)}")
-    if any(t is not None and t.stride(-1) != 1 for t in (x, b, c, y, states)) \
-            or (states is not None and states.stride(-2) != n):
+    y = output("y", y, (bs, h, s, p), x.dtype, x.device)
+    states = output("states", states, (bs, h, s // chunk, p, n),
+                    work_dtype(x), x.device)
+    if any(t.stride(-1) != 1 for t in (x, b, c, y, states)) \
+            or states.stride(-2) != n:
         raise ValueError("the last dim of x, b, c, y and the [P, N] block of "
                          "states must be contiguous")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"ssd_chunk_intra runs on cuda or cpu, not {x.device}")
-    if y is None:
-        y = torch.empty(shape_y, dtype=x.dtype, device=x.device)
-    if states is None:
-        states = torch.empty(shape_st, dtype=acc, device=x.device)
-    args = (x, dt, a, b, c, chunk, y, states)
-    if build.through_op(x, dt, a, b, c, y, states):
-        torch.ops.repro_torch.ssd_chunk_intra_heads(*args)
-    else:
-        _ssd(*args)
+    build.call(torch.ops.repro_torch.ssd_chunk_intra_heads, _ssd, x, dt, a,
+               b, c, chunk, y, states)
     return y, states
 
 
@@ -190,32 +214,23 @@ def _ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
          states: torch.Tensor) -> None:
     """The checked call, writing y and states."""
     if x.device.type == "cpu":
-        ry, rs = ssd_chunk_intra_heads_reference(x, dt, a, b, c, chunk)
-        y.copy_(ry)
-        states.copy_(rs)
-        return
+        return build.copy_into((y, states), ssd_chunk_intra_heads_reference(
+            x, dt, a, b, c, chunk))
     out_y = y
     if x.dtype == torch.bfloat16:
         x, b, c = dense_if_unaligned(x, b, c)
-        if not _rows_aligned(y, y.stride()[:3]):
+        if not rows_aligned(y, y.stride()[:3]):
             y = torch.empty(y.shape, dtype=x.dtype, device=x.device)
-    dt, a = dt.float(), a.float()       # [B,H,S] and [B,H]: cheap if copied
     work = torch.empty(work_bytes(x, chunk), dtype=torch.uint8,
                        device=x.device) if x.dtype == torch.bfloat16 else None
-    args = launch_args(x, dt, a, b, c, y, states, work, chunk)
-    with torch.cuda.device(x.device):
-        KERNEL.launch(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    KERNEL.launch_on(x.device, launch_args(x, dt, a, b, c, y, states, work,
+                                           chunk))
     if out_y is not y:
         out_y.copy_(y)
 
 
-_ssd_op = torch.library.custom_op("repro_torch::ssd_chunk_intra_heads", _ssd,
-                                  mutates_args=("y", "states"))
-
-
-@_ssd_op.register_fake
-def _(x, dt, a, b, c, chunk, y, states):
-    return None
+build.mutating_op("repro_torch::ssd_chunk_intra_heads", _ssd,
+                  ("y", "states"))
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_chunk_intra_heads)
@@ -234,14 +249,17 @@ def ssd_chunk_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     b: torch.Tensor, c: torch.Tensor, chunk: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Pallas kernel's layout: x [BH,S,P], dt [BH,S], a [BH], b, c
-    [BH,S,N].  Returns (y_diag [BH,S,P] in x's dtype, states
-    [BH,S/chunk,P,N] float32)."""
+    [BH,S,N], dt and a of any float dtype (cast to the work dtype here).
+    Returns (y_diag [BH,S,P] in x's dtype, states [BH,S/chunk,P,N]
+    float32)."""
     if x.dim() != 3 or dt.dim() != 2 or a.dim() != 1 or b.dim() != 3 \
             or c.dim() != 3:
         raise ValueError("x, dt, a, b, c must be [BH,S,P], [BH,S], [BH], "
                          "[BH,S,N], [BH,S,N]")
-    y, states = ssd_chunk_intra_heads(x[:, None], dt[:, None], a[:, None],
-                                      b[:, None], c[:, None], chunk)
+    ft = work_dtype(x)
+    y, states = ssd_chunk_intra_heads(
+        x[:, None], dt.to(ft)[:, None], a.to(ft)[:, None], b[:, None],
+        c[:, None], chunk)
     return y[:, 0], states[:, 0]
 
 
@@ -288,14 +306,6 @@ SCRATCH_DTYPES = dict(rows=torch.float64, part=torch.float32,
                       da=torch.float32)
 
 
-def _contiguous_block(t: torch.Tensor) -> bool:
-    """The [P, N] block of dstates contiguous and 16-byte aligned with its
-    strides (the kernel reads it in rows of 16 bytes)."""
-    return (t.stride(-1) == 1 and t.stride(-2) == t.shape[-1]
-            and t.data_ptr() % 16 == 0
-            and all(st % 4 == 0 for st in t.stride()[:3]))
-
-
 def bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da, part, rows,
                     work, chunk: int, splits: int, dcum=None,
                     dc_extra=None) -> tuple:
@@ -310,31 +320,18 @@ def bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da, part, rows,
     raises on what the kernel does not take.  Reads no device memory."""
     bs, h, s, p = x.shape
     g, n = b.shape[1], b.shape[-1]
-    if p not in DIMS or n not in DIMS:
-        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
-    if g not in (1, h):
-        raise ValueError(f"b and c must have 1 or {h} groups, not {g}")
-    if not 1 <= splits <= h // g:
-        raise ValueError(f"splits {splits} must be in [1, {h // g}]")
-    if dt.dtype != torch.float32 or a.dtype != torch.float32 or \
-            ddt.dtype != torch.float32:
-        raise ValueError("dt, a and ddt must be float32")
-    if dy.dtype != x.dtype or dx.dtype != x.dtype or \
-            dstates.dtype != torch.float32:
-        raise ValueError("dy and dx must be x's dtype, dstates float32")
-    if dy.shape != x.shape or dx.shape != x.shape or ddt.shape != dt.shape \
-            or dstates.shape != (bs, h, s // chunk, p, n):
-        raise ValueError("dy, dx, ddt or dstates do not match x")
+    check_dims(p, n, chunk)
+    check_groups(h, g, splits)
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError("dt and a must be float32")
     if any(t.stride(-1) != 1 for t in (x, b, c, dy, dx)):
         raise ValueError("the last dim of x, b, c, dy and dx must be "
                          "contiguous")
-    if not _contiguous_block(dstates):
+    if not contiguous_block(dstates):
         raise ValueError("dstates' [P, N] blocks must be contiguous and "
                          "start on 16 bytes")
     if x.dtype == torch.bfloat16 and not all(
-            _rows_aligned(t, t.stride()[:3]) for t in (x, b, c, dy, dx)):
+            rows_aligned(t, t.stride()[:3]) for t in (x, b, c, dy, dx)):
         raise ValueError("bfloat16 rows of x, b, c, dy and dx must start on "
                          "16 bytes")
     need = bwd_scratch(x, b, chunk, splits)
@@ -357,7 +354,7 @@ def bwd_launch_args(x, dt, a, b, c, dy, dstates, dx, ddt, da, part, rows,
             ddt.data_ptr(), da.data_ptr(), part.data_ptr(), rows.data_ptr(),
             work.data_ptr(), *(None if t is None else t.data_ptr()
                                for t in (dcum, dc_extra)),
-            _DTYPES[x.dtype], bs, h, g, s, chunk, p, n,
+            build.DTYPE_CODES[x.dtype], bs, h, g, s, chunk, p, n,
             splits, *x.stride()[:3], *dt.stride(), *a.stride(),
             *b.stride()[:3], *c.stride()[:3], *dy.stride()[:3],
             *dstates.stride()[:3], *dx.stride()[:3], *ddt.stride())
@@ -390,39 +387,28 @@ def ssd_chunk_intra_bwd_heads(x: torch.Tensor, dt: torch.Tensor,
     bytes and dstates whose [P, N] blocks are not dense are copied first.
     Under a dispatch mode it runs through the custom op
     `repro_torch::ssd_chunk_intra_bwd`."""
-    _check(x, dt, a, b, c, chunk)
+    _check(x, dt, a, b, c, chunk, dy, dstates)
     bs, h, s, p = x.shape
-    g, n = b.shape[1], b.shape[-1]
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.requires_grad:
+    n = b.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)}")
-    if dstates.shape != (bs, h, s // chunk, p, n) or dstates.requires_grad:
+    if dstates.shape != (bs, h, s // chunk, p, n):
         raise ValueError(f"dstates must be {(bs, h, s // chunk, p, n)}")
-    outs, acc = [], work_dtype(x)
-    for name, out, shape, dtype in (("dx", dx, x.shape, x.dtype),
-                                    ("ddt", ddt, dt.shape, acc),
-                                    ("db", db, b.shape, b.dtype),
-                                    ("dc", dc, c.shape, c.dtype)):
-        if out is None:
-            out = torch.empty(shape, dtype=dtype, device=x.device)
-        elif out.shape != shape or out.dtype != dtype or \
-                out.device != x.device or \
-                (name != "ddt" and out.stride(-1) != 1):
-            raise ValueError(f"{name} must be {dtype} {tuple(shape)} on "
-                             f"{x.device}, its last dim contiguous but "
-                             f"ddt's")
-        outs.append(out)
-    dx, ddt, db, dc = outs
+    acc = work_dtype(x)
+    dx = output("dx", dx, x.shape, x.dtype, x.device)
+    ddt = output("ddt", ddt, dt.shape, acc, x.device)
+    db = output("db", db, b.shape, b.dtype, x.device)
+    dc = output("dc", dc, c.shape, c.dtype, x.device)
+    if any(t.stride(-1) != 1 for t in (dx, db, dc)):
+        raise ValueError("the last dim of dx, db and dc must be contiguous")
     da = torch.empty((bs, h), dtype=acc, device=x.device)
     for name, t, shape in (("dcum", dcum, dt.shape), ("dc_extra", dc_extra,
                                                       c.shape)):
         if t is not None and (t.shape != shape or t.dtype != acc):
             raise ValueError(f"{name} must be {acc} {tuple(shape)}")
-    args = (x, dt, a, b, c, dy, dstates.to(acc), chunk, dx, ddt, da, db, dc,
-            dcum, dc_extra)
-    if build.through_op(*args[:7], *args[8:13]):
-        torch.ops.repro_torch.ssd_chunk_intra_bwd(*args)
-    else:
-        _ssd_bwd(*args)
+    build.call(torch.ops.repro_torch.ssd_chunk_intra_bwd, _ssd_bwd, x, dt, a,
+               b, c, dy, dstates.to(acc), chunk, dx, ddt, da, db, dc, dcum,
+               dc_extra)
     return dx, ddt, da, db, dc
 
 
@@ -434,19 +420,12 @@ def _ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              dc_extra: Optional[torch.Tensor] = None) -> None:
     """The checked backward, writing dx, ddt, da, db and dc."""
     if x.device.type == "cpu":
-        for out, ref in zip((dx, ddt, da, db, dc),
-                            ssd_chunk_intra_bwd_reference(
-                                x, dt, a, b, c, dy, dstates, chunk, dcum,
-                                dc_extra)):
-            out.copy_(ref)
-        return
-
-    def launch(args):
-        with torch.cuda.device(x.device):
-            BWD_KERNEL.launch(
-                *args, torch.cuda.current_stream(x.device).cuda_stream)
+        return build.copy_into((dx, ddt, da, db, dc),
+                               ssd_chunk_intra_bwd_reference(
+                                   x, dt, a, b, c, dy, dstates, chunk, dcum,
+                                   dc_extra))
     bwd_launch(x, dt, a, b, c, dy, dstates, chunk, dx, ddt, da, db, dc,
-               launch, dcum, dc_extra)
+               partial(BWD_KERNEL.launch_on, x.device), dcum, dc_extra)
 
 
 def bwd_launch(x, dt, a, b, c, dy, dstates, chunk: int, dx, ddt, da, db, dc,
@@ -461,13 +440,12 @@ def bwd_launch(x, dt, a, b, c, dy, dstates, chunk: int, dx, ddt, da, db, dc,
     out_dx = dx
     if x.dtype == torch.bfloat16:
         x, b, c = dense_if_unaligned(x, b, c)
-        if not _rows_aligned(dy, dy.stride()[:3]):
+        if not rows_aligned(dy, dy.stride()[:3]):
             dy = dy.contiguous()
-        if not _rows_aligned(dx, dx.stride()[:3]):
+        if not rows_aligned(dx, dx.stride()[:3]):
             dx = torch.empty(dx.shape, dtype=x.dtype, device=x.device)
-    if not _contiguous_block(dstates):
+    if not contiguous_block(dstates):
         dstates = dstates.contiguous()
-    dt, a = dt.float(), a.float()
     bs, h, s, _ = x.shape
     g, n = b.shape[1], b.shape[-1]
     splits = bwd_splits(bs, h, g, s // chunk, -(-chunk // TILE))
@@ -488,15 +466,8 @@ def bwd_launch(x, dt, a, b, c, dy, dstates, chunk: int, dx, ddt, da, db, dc,
         out_dx.copy_(dx)
 
 
-_ssd_bwd_op = torch.library.custom_op("repro_torch::ssd_chunk_intra_bwd",
-                                      _ssd_bwd, mutates_args=(
-                                          "dx", "ddt", "da", "db", "dc"))
-
-
-@_ssd_bwd_op.register_fake
-def _(x, dt, a, b, c, dy, dstates, chunk, dx, ddt, da, db, dc, dcum=None,
-      dc_extra=None):
-    return None
+build.mutating_op("repro_torch::ssd_chunk_intra_bwd", _ssd_bwd,
+                  ("dx", "ddt", "da", "db", "dc"))
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_chunk_intra_bwd)

@@ -11,7 +11,8 @@ the host.  The kernels replace no TPU kernel.  Two entry points:
 * `ssd_state_heads(y, states, dt, a, c, chunk, init)`: the forward, in the
   heads layout of `ssd_scan.ssd_chunk_intra_heads` (y [B,H,S,P] holds the
   block's y_diag and gets y in place; states [B,H,L,P,N] are its chunk
-  states); it returns the final state and what the backward needs: the
+  states; dt, a and init in the work dtype, as the card requires); it
+  returns the final state and what the backward needs: the
   entering states, their float32 carries and cs = cumsum(dt a);
 * `ssd_state_bwd_heads(dy, dfinal, carries, entering, cs, c, chunk)`: the
   gradients the two steps send to the block's states (dstates), to cs
@@ -30,17 +31,18 @@ through its custom op, `repro_torch::ssd_state_fwd` / `::ssd_state_bwd`.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Callable, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import build
+from .build import contiguous_block, head_strides, rows_aligned
 from .ref import ssd_state_bwd_reference, ssd_state_reference, work_dtype
-from .ssd_scan import (DIMS, MAX_CHUNK, SMS, TILE, _contiguous_block,
-                       _head_strides, _rows_aligned)
+from .ssd_scan import (SMS, TILE, check_call, check_dims, check_dtypes,
+                       check_groups)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PTILES = (64, 32, 16)           # rows of P a block of the state passes takes
 
 # repro_ssd_state_fwd's C parameters: y, states, dt, a, c, init, fin,
@@ -79,13 +81,6 @@ def readout_splits(bs: int, h: int, g: int, chunks: int, tiles: int) -> int:
     return min(h // g, max(1, -(-2 * SMS // blocks)))
 
 
-def _check_dims(p: int, n: int, chunk: int) -> None:
-    if p not in DIMS or n not in DIMS:
-        raise ValueError(f"head dim {p} and state dim {n} must be in {DIMS}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
-
-
 def fwd_launch_args(y, states, dt, a, c, init, fin, carries, entering, cs,
                     chunk: int, ptile: int) -> tuple:
     """repro_ssd_state_fwd's arguments but the stream, for checked y
@@ -98,17 +93,17 @@ def fwd_launch_args(y, states, dt, a, c, init, fin, carries, entering, cs,
     kernels do not take.  Reads no device memory."""
     bs, h, s, p = y.shape
     n = c.shape[-1]
-    _check_dims(p, n, chunk)
+    check_dims(p, n, chunk)
     if ptile not in PTILES or ptile > p:
         raise ValueError(f"ptile {ptile} must be one of {PTILES}, <= {p}")
-    if dt.dtype != torch.float32 or a.dtype != torch.float32:
-        raise ValueError("dt and a must be float32")
-    if states.dtype != torch.float32 or not _contiguous_block(states):
+    if any(t is not None and t.dtype != torch.float32 for t in (dt, a, init)):
+        raise ValueError("dt, a and init must be float32")
+    if states.dtype != torch.float32 or not contiguous_block(states):
         raise ValueError("states must be float32 with dense [P, N] blocks "
                          "that start on 16 bytes")
-    cst = _head_strides(c, h)
+    cst = head_strides(c, h)
     if y.dtype == torch.bfloat16 and not (
-            _rows_aligned(c, cst) and _rows_aligned(y, y.stride()[:3])):
+            rows_aligned(c, cst) and rows_aligned(y, y.stride()[:3])):
         raise ValueError("bfloat16 rows of c and y must start on 16 bytes")
     if (carries is None) != (y.dtype == torch.float32):
         raise ValueError("carries go with bfloat16 only")
@@ -119,37 +114,10 @@ def fwd_launch_args(y, states, dt, a, c, init, fin, carries, entering, cs,
     return (y.data_ptr(), states.data_ptr(), dt.data_ptr(), a.data_ptr(),
             c.data_ptr(), None if init is None else init.data_ptr(),
             fin.data_ptr(), None if carries is None else carries.data_ptr(),
-            entering.data_ptr(), cs.data_ptr(), _DTYPES[y.dtype], bs, h, s,
+            entering.data_ptr(), cs.data_ptr(), build.DTYPE_CODES[y.dtype],
+            bs, h, s,
             chunk, p, n, ptile, *y.stride()[:3], *states.stride()[:3],
             *dt.stride(), *a.stride(), *cst)
-
-
-def _check_fwd(y, states, dt, a, c, chunk, init) -> None:
-    bs, h, s, p = y.shape
-    g, n = c.shape[1], c.shape[-1]
-    if chunk < 1 or s % chunk:
-        raise ValueError(f"seq {s} must divide chunk {chunk}")
-    if states.shape != (bs, h, s // chunk, p, n) or dt.shape != (bs, h, s) \
-            or a.shape != (bs, h) or c.shape != (bs, g, s, n) \
-            or g not in (1, h):
-        raise ValueError(f"states {tuple(states.shape)}, dt "
-                         f"{tuple(dt.shape)}, a {tuple(a.shape)} or c "
-                         f"{tuple(c.shape)} do not match y {tuple(y.shape)}")
-    if init is not None and init.shape != (bs, h, p, n):
-        raise ValueError(f"init must be {(bs, h, p, n)}")
-    if c.dtype != y.dtype or (y.dtype not in _DTYPES and not (
-            y.dtype == torch.float64 and y.device.type == "cpu")):
-        raise ValueError(f"y and c must share float32 or bfloat16 (or "
-                         f"float64 on the CPU), got {y.dtype}, {c.dtype}")
-    if any(t.stride(-1) != 1 for t in (y, c)):
-        raise ValueError("the last dim of y and c must be contiguous")
-    if len({t.device for t in (y, states, dt, a, c)}) != 1:
-        raise ValueError("y, states, dt, a, c must be on one device")
-    if any(t is not None and t.requires_grad
-           for t in (y, states, dt, a, c, init)):
-        raise ValueError("a direct call of the state kernels has no "
-                         "backward: inputs that require grad go through "
-                         "repro_torch.kernels.ops.ssd_chunked_bshp")
 
 
 def ssd_state_heads(y: torch.Tensor, states: torch.Tensor, dt: torch.Tensor,
@@ -158,17 +126,29 @@ def ssd_state_heads(y: torch.Tensor, states: torch.Tensor, dt: torch.Tensor,
                     ) -> Tuple[torch.Tensor, ...]:
     """Steps 3 and 4 of the chunked SSD (`ref.ssd_state_reference`): y
     [B,H,S,P] holds the intra-chunk output y_diag and is updated in place
-    to y; states [B,H,L,P,N] are the block's chunk states (work dtype),
-    dt [B,H,S], a [B,H], c [B,G,S,N] with G = 1 (shared by the heads) or
-    H, init [B,H,P,N] or None; any strides with the last dim contiguous.
+    to y; states [B,H,L,P,N] are the block's chunk states, dt [B,H,S], a
+    [B,H] and init [B,H,P,N] or None (all in the work dtype), c [B,G,S,N]
+    with G = 1 (shared by the heads) or H; any strides with the last dim
+    contiguous.
     Returns (final [B,H,P,N], entering [B,H,L,P,N] in y's dtype, carries
     [B,H,L,P,N] (the entering states unrounded; for float32 the same
     tensor as entering), cs [B,H,S]), all but entering in the work dtype.
     On the card, c whose bfloat16 rows are off 16 bytes is copied dense,
     and such a y is updated through a dense copy."""
-    _check_fwd(y, states, dt, a, c, chunk, init)
     bs, h, s, p = y.shape
-    n = c.shape[-1]
+    g, n = c.shape[1], c.shape[-1]
+    check_call(s, chunk, y, states, dt, a, c, init)
+    if states.shape != (bs, h, s // chunk, p, n) or dt.shape != (bs, h, s) \
+            or a.shape != (bs, h) or c.shape != (bs, g, s, n) \
+            or g not in (1, h):
+        raise ValueError(f"states {tuple(states.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)} or c "
+                         f"{tuple(c.shape)} do not match y {tuple(y.shape)}")
+    if init is not None and init.shape != (bs, h, p, n):
+        raise ValueError(f"init must be {(bs, h, p, n)}")
+    check_dtypes("y and c", y, c)
+    if any(t.stride(-1) != 1 for t in (y, c)):
+        raise ValueError("the last dim of y and c must be contiguous")
     ft = work_dtype(y)
     kw = dict(device=y.device)
     fin = torch.empty((bs, h, p, n), dtype=ft, **kw)
@@ -176,11 +156,8 @@ def ssd_state_heads(y: torch.Tensor, states: torch.Tensor, dt: torch.Tensor,
     carries = torch.empty(entering.shape, dtype=ft, **kw) \
         if y.dtype != ft else None
     cs = torch.empty((bs, h, s), dtype=ft, **kw)
-    args = (y, states, dt, a, c, init, chunk, fin, entering, carries, cs)
-    if build.through_op(y, states, dt, a, c, fin, entering, cs):
-        torch.ops.repro_torch.ssd_state_fwd(*args)
-    else:
-        _state_fwd(*args)
+    build.call(torch.ops.repro_torch.ssd_state_fwd, _state_fwd, y, states,
+               dt, a, c, init, chunk, fin, entering, carries, cs)
     return fin, entering, entering if carries is None else carries, cs
 
 
@@ -191,43 +168,30 @@ def _state_fwd(y: torch.Tensor, states: torch.Tensor, dt: torch.Tensor,
                cs: torch.Tensor) -> None:
     """The checked forward, writing y, fin, entering, carries and cs."""
     if y.device.type == "cpu":
-        ry, rf, re, rc, rcs = ssd_state_reference(y, states, dt, a, c, chunk,
-                                                  init)
-        for out, ref in ((y, ry), (fin, rf), (entering, re), (cs, rcs)):
-            out.copy_(ref)
-        if carries is not None:
-            carries.copy_(rc)
-        return
+        return build.copy_into((y, fin, entering, carries, cs),
+                               ssd_state_reference(y, states, dt, a, c,
+                                                   chunk, init))
     out_y = y
     if y.dtype == torch.bfloat16:
-        if not _rows_aligned(c, _head_strides(c, y.shape[1])):
+        if not rows_aligned(c, head_strides(c, y.shape[1])):
             c = c.contiguous()
-        if not _rows_aligned(y, y.stride()[:3]):
+        if not rows_aligned(y, y.stride()[:3]):
             y = y.contiguous()
     bs, h = y.shape[:2]
     c = c.expand(bs, h, *c.shape[2:])       # G = 1: a head stride of 0
-    if not _contiguous_block(states):
+    if not contiguous_block(states):
         states = states.contiguous()
     if init is not None:
-        init = init.float().contiguous()
-    args = fwd_launch_args(y, states, dt.float(), a.float(), c, init, fin,
-                           carries, entering, cs, chunk,
-                           ptile_for(bs, h, y.shape[-1]))
-    with torch.cuda.device(y.device):
-        STATE_KERNEL.launch(*args,
-                            torch.cuda.current_stream(y.device).cuda_stream)
+        init = init.contiguous()
+    STATE_KERNEL.launch_on(y.device, fwd_launch_args(
+        y, states, dt, a, c, init, fin, carries, entering, cs, chunk,
+        ptile_for(bs, h, y.shape[-1])))
     if out_y is not y:
         out_y.copy_(y)
 
 
-_state_fwd_op = torch.library.custom_op(
-    "repro_torch::ssd_state_fwd", _state_fwd,
-    mutates_args=("y", "fin", "entering", "carries", "cs"))
-
-
-@_state_fwd_op.register_fake
-def _(y, states, dt, a, c, init, chunk, fin, entering, carries, cs):
-    return None
+build.mutating_op("repro_torch::ssd_state_fwd", _state_fwd,
+                  ("y", "fin", "entering", "carries", "cs"))
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_state_fwd)
@@ -254,14 +218,11 @@ def bwd_launch_args(dy, dfinal, carries, entering, cs, c, dstates, dinit,
     device memory."""
     bs, h, s, p = dy.shape
     g, n = c.shape[1], c.shape[-1]
-    _check_dims(p, n, chunk)
-    if g not in (1, h):
-        raise ValueError(f"c must have 1 or {h} groups, not {g}")
-    if not 1 <= splits <= h // g:
-        raise ValueError(f"splits {splits} must be in [1, {h // g}]")
+    check_dims(p, n, chunk)
+    check_groups(h, g, splits)
     if dy.dtype == torch.bfloat16 and not (
-            _rows_aligned(dy, dy.stride()[:3])
-            and _rows_aligned(c, c.stride()[:3])):
+            rows_aligned(dy, dy.stride()[:3])
+            and rows_aligned(c, c.stride()[:3])):
         raise ValueError("bfloat16 rows of dy and c must start on 16 bytes")
     need = dict(dstates=(bs, h, s // chunk, p, n), dinit=(bs, h, p, n),
                 dcum=(bs, h, s), dc_part=(splits, bs, g, s, n),
@@ -279,7 +240,8 @@ def bwd_launch_args(dy, dfinal, carries, entering, cs, c, dstates, dinit,
             carries.data_ptr(), entering.data_ptr(), cs.data_ptr(),
             c.data_ptr(), dstates.data_ptr(),
             None if dinit is None else dinit.data_ptr(), dcum.data_ptr(),
-            dc_part.data_ptr(), dc.data_ptr(), _DTYPES[dy.dtype], bs, h, g,
+            dc_part.data_ptr(), dc.data_ptr(), build.DTYPE_CODES[dy.dtype],
+            bs, h, g,
             s, chunk, p, n, splits, *dy.stride()[:3], *c.stride()[:3])
 
 
@@ -307,12 +269,8 @@ def ssd_state_bwd_heads(dy: torch.Tensor, dfinal: Optional[torch.Tensor],
     dcs = torch.empty((bs, h, s), **kw)
     dc = torch.empty((bs, g, s, n), **kw)
     dinit = torch.empty((bs, h, p, n), **kw)
-    args = (dy, dfinal, carries, entering, cs, c, chunk, dstates, dcs, dc,
-            dinit)
-    if build.through_op(dy, carries, entering, cs, c, dstates, dcs, dc):
-        torch.ops.repro_torch.ssd_state_bwd(*args)
-    else:
-        _state_bwd(*args)
+    build.call(torch.ops.repro_torch.ssd_state_bwd, _state_bwd, dy, dfinal,
+               carries, entering, cs, c, chunk, dstates, dcs, dc, dinit)
     return dstates, dcs, dc, dinit
 
 
@@ -323,18 +281,11 @@ def _state_bwd(dy: torch.Tensor, dfinal: Optional[torch.Tensor],
                dinit: torch.Tensor) -> None:
     """The checked backward, writing dstates, dcs, dc and dinit."""
     if dy.device.type == "cpu":
-        ref = ssd_state_bwd_reference(dy, dfinal, carries, entering, cs, c,
-                                      chunk)
-        for out, r in zip((dstates, dcs, dc, dinit), ref):
-            out.copy_(r)
-        return
-
-    def launch(args):
-        with torch.cuda.device(dy.device):
-            STATE_BWD_KERNEL.launch(
-                *args, torch.cuda.current_stream(dy.device).cuda_stream)
+        return build.copy_into((dstates, dcs, dc, dinit),
+                               ssd_state_bwd_reference(dy, dfinal, carries,
+                                                       entering, cs, c, chunk))
     bwd_launch(dy, dfinal, carries, entering, cs, c, chunk, dstates, dcs, dc,
-               dinit, launch)
+               dinit, partial(STATE_BWD_KERNEL.launch_on, dy.device))
 
 
 def bwd_launch(dy, dfinal, carries, entering, cs, c, chunk: int, dstates,
@@ -344,12 +295,12 @@ def bwd_launch(dy, dfinal, carries, entering, cs, c, chunk: int, dstates,
     read, the head splits' buffer for dc (the kernels add the splits in
     order), and the launch plan."""
     if dy.dtype == torch.bfloat16:
-        if not _rows_aligned(dy, dy.stride()[:3]):
+        if not rows_aligned(dy, dy.stride()[:3]):
             dy = dy.contiguous()
-        if not _rows_aligned(c, c.stride()[:3]):
+        if not rows_aligned(c, c.stride()[:3]):
             c = c.contiguous()
     if dfinal is not None:
-        dfinal = dfinal.float().contiguous()
+        dfinal = dfinal.contiguous()
     bs, h, s, _ = dy.shape
     g = c.shape[1]
     splits = readout_splits(bs, h, g, s // chunk, -(-chunk // TILE))
@@ -359,14 +310,8 @@ def bwd_launch(dy, dfinal, carries, entering, cs, c, chunk: int, dstates,
                            dinit, dcs, part, dc, chunk, splits))
 
 
-_state_bwd_op = torch.library.custom_op(
-    "repro_torch::ssd_state_bwd", _state_bwd,
-    mutates_args=("dstates", "dcs", "dc", "dinit"))
-
-
-@_state_bwd_op.register_fake
-def _(dy, dfinal, carries, entering, cs, c, chunk, dstates, dcs, dc, dinit):
-    return None
+build.mutating_op("repro_torch::ssd_state_bwd", _state_bwd,
+                  ("dstates", "dcs", "dc", "dinit"))
 
 
 @register_flop_formula(torch.ops.repro_torch.ssd_state_bwd)

@@ -89,57 +89,35 @@ def init_mamba2(p: Mamba2, generator: torch.Generator) -> None:
     const_init(p.D, 1.0)
 
 
-def _segsum(x: torch.Tensor) -> torch.Tensor:
-    """x: [..., Q, H] -> [..., H, Q, Q] lower-triangular pairwise sums:
-    out[i, j] = sum_{j < t <= i} x[t]  (i >= j), -inf above diagonal."""
-    q = x.shape[-2]
-    cs = torch.cumsum(x, dim=-2)                              # [..., Q, H]
-    diff = cs[..., :, None, :] - cs[..., None, :, :]          # [..., i, j, H]
-    diff = torch.movedim(diff, -1, -3)                        # [..., H, i, j]
-    mask = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
-    return torch.where(mask, diff, -torch.inf)
-
-
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, chunk: int,
                 init_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD.
-    x: [B,S,H,P], dt: [B,S,H] (>0), a: [H] (<0), b,c: [B,S,N].
+    x: [B,S,H,P], dt: [B,S,H] (>0), a: [H] (<0), b,c: [B,S,N], as the
+    mixer makes them: `ssd_chunked_bshp` casts them to its dtype contract.
     Returns (y [B,S,H,P] in x's dtype, final_state [B,H,P,N] float32).
 
-    Steps 1 and 2 (the intra-chunk output and each chunk's state) run in
-    float32 inside the SSD kernel on the card, or its plain version on the
-    CPU.  The reference runs them in the input dtype, so in bf16 the two
-    differ by bf16 roundings, and in float32 they agree.  Steps 3 and 4
-    (the state passes' kernels, or their plain version) follow the
-    reference: a float32 carry, emitted and read out in the input dtype.
-    Under autograd the four steps are one Function whose gradients come
-    from the backward kernels (their plain versions on the CPU), summed in
-    float32.
+    1, 2: the intra-chunk output and each chunk's terminal state; 3: the
+    inter-chunk recurrence (a float32 carry, entering each chunk in the
+    compute dtype); 4: the entering state read out through the decay
+    inside the chunk.  Steps 1 and 2 run in float32 inside the SSD kernel
+    on the card, or its plain version on the CPU.  The reference runs them
+    in the input dtype, so in bf16 the two differ by bf16 roundings, and
+    in float32 they agree.  Steps 3 and 4 (the state passes' kernels, or
+    their plain version) follow the reference: a float32 carry, emitted
+    and read out in the input dtype.  Under autograd the four steps are
+    one Function whose gradients come from the backward kernels (their
+    plain versions on the CPU), summed in float32.
 
     The span `ssm.ssd` covers the call and, while the recorder is on, its
     backward pass (`obs.backward_span`)."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"seq {x.shape[1]} not divisible by chunk {chunk}")
     with obs.span("ssm.ssd"):
-        return obs.backward_span("ssm.ssd", _ssd_chunked, x, dt, a, b, c,
-                                 chunk=chunk, init_state=init_state)
-
-
-def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                 b: torch.Tensor, c: torch.Tensor, chunk: int,
-                 init_state: Optional[torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    s = x.shape[1]
-    cdt = x.dtype                                             # compute dtype
-    if s % chunk:
-        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
-    # 1, 2: the intra-chunk output and each chunk's terminal state; 3: the
-    # inter-chunk recurrence (a float32 carry, entering each chunk in the
-    # compute dtype); 4: the entering state read out through the decay
-    # inside the chunk
-    return ssd_chunked_bshp(x, dt.float(), a.float(), b.to(cdt), c.to(cdt),
-                            chunk, None if init_state is None
-                            else init_state.float())
+        return obs.backward_span(
+            "ssm.ssd", lambda *xs: ssd_chunked_bshp(*xs, chunk, init_state),
+            x, dt, a, b, c)
 
 
 def ssd_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -266,7 +244,7 @@ def mamba2_rank(proj: torch.Tensor, conv_w: torch.Tensor,
     xs = xs.reshape(bs, s, hl, pdim)
     a = -torch.exp(a_log[heads].float())
     if s % cfg.ssm_chunk == 0 and s >= cfg.ssm_chunk:
-        # steps 1 and 2 in the SSD kernel on the card
+        # all four steps on the SSD's kernels on the card
         y, new_ssm = ssd_chunked(xs, dt, a, b, c, cfg.ssm_chunk, ssm_state)
     else:
         y, new_ssm = ssd_reference(xs.float(), dt, a, b.float(), c.float(),

@@ -35,12 +35,9 @@ import pytest
 import torch
 
 from repro.kernels.ssd_scan import ssd_chunk_intra as jax_ssd_chunk_intra
-from repro_torch.kernels import ssd_chunk_intra_bshp, ssd_chunk_intra_reference
 from repro_torch.kernels.build import CSRC
 from repro_torch.kernels import ssd_state
-from repro_torch.kernels.ops import (SSDChunked, heads_views,
-                                     ssd_chunk_intra_bshp_bwd,
-                                     ssd_chunked_bshp)
+from repro_torch.kernels.ops import SSDChunked, ssd_chunked_bshp
 from repro_torch.kernels.ref import (ssd_chunk_intra_bwd_reference,
                                      ssd_chunk_intra_heads_reference,
                                      ssd_state_bwd_reference,
@@ -52,7 +49,7 @@ from repro_torch.kernels.ssd_scan import (ARGTYPES, BWD_ARGTYPES, DIMS,
                                           bwd_splits, dense_if_unaligned,
                                           launch_args,
                                           ssd_chunk_intra_bwd_heads,
-                                          work_bytes)
+                                          ssd_chunk_intra_heads, work_bytes)
 
 torch.set_num_threads(1)
 
@@ -70,6 +67,23 @@ def ssd_inputs(bh, s, p, n, seed=0):
     b = rng.standard_normal((bh, s, n)).astype(np.float32)
     c = rng.standard_normal((bh, s, n)).astype(np.float32)
     return x, dt, a, b, c
+
+
+def heads(x, dt, a, b, c) -> tuple:
+    """The model's x [B,S,H,P], dt [B,S,H], a [H], b, c [B,S,N] as the
+    heads-layout views the SSD kernels read (as `ops.ssd_chunked_bshp`
+    forms them): x, dt transposed, a with a batch stride of 0, b and c
+    with a head stride of 0."""
+    return (x.transpose(1, 2), dt.transpose(1, 2),
+            a.expand(x.shape[0], x.shape[2]), b[:, None], c[:, None])
+
+
+def flat_reference(x, dt, a, b, c, chunk):
+    """The plain SSD block in the Pallas layout (x [BH,S,P], dt [BH,S], a
+    [BH], b, c [BH,S,N]): one head a row."""
+    y, states = ssd_chunk_intra_heads_reference(
+        x[:, None], dt[:, None], a[:, None], b[:, None], c[:, None], chunk)
+    return y[:, 0], states[:, 0]
 
 
 def two_parts(v: torch.Tensor):
@@ -137,7 +151,7 @@ def test_bf16_emulation_meets_the_smoke_tolerances(bh, q, p, n):
     tx, tb, tc = (torch.from_numpy(v).bfloat16() for v in (x, b, c))
     tdt, ta = torch.from_numpy(dt), torch.from_numpy(a)
     y, st = bf16_kernel_emulation(tx, tdt, ta, tb, tc, q)
-    ry, rst = ssd_chunk_intra_reference(tx, tdt, ta, tb, tc, q)
+    ry, rst = flat_reference(tx, tdt, ta, tb, tc, q)
     jx, jb, jc = (jnp.asarray(v).astype(jnp.bfloat16) for v in (x, b, c))
     jy, jst = jax_ssd_chunk_intra(jx, jnp.asarray(dt), jnp.asarray(a), jb,
                                   jc, chunk=q, interpret=True)
@@ -154,7 +168,7 @@ def test_bf16_emulation_is_not_the_one_part_scheme():
     x, dt, a, b, c = ssd_inputs(2, 1024, 64, 128, seed=512)
     tx, tb, tc = (torch.from_numpy(v).bfloat16() for v in (x, b, c))
     tdt, ta = torch.from_numpy(dt), torch.from_numpy(a)
-    _, rst = ssd_chunk_intra_reference(tx, tdt, ta, tb, tc, 512)
+    _, rst = flat_reference(tx, tdt, ta, tb, tc, 512)
     cum = torch.cumsum(tdt.reshape(2, 2, 512) * ta[:, None, None], -1,
                        dtype=torch.float64)
     w = tdt.reshape(2, 2, 512) * torch.exp((cum[..., -1:] - cum).float())
@@ -168,9 +182,9 @@ def model_views(bs, s, h, p, n, dtype, offset=0):
     """The model's views (models/ssm.py): x [B,H,S,P] as a transposed view
     of the [B,S,H,P] slice of xbc, b and c [B,1,S,N] slices of xbc, dt
     [B,H,S] transposed, a [B,H] with a batch stride of 0; `offset` elements
-    shift every row of xbc.  And y, states as ops.ssd_chunk_intra_bshp
-    allocates them, as transposed views, and the bf16 work buffer for a
-    chunk of 64."""
+    shift every row of xbc.  And y, states as the chunked SSD's Function
+    (`ops.ssd_chunked_bshp`) allocates them, as transposed views, and the
+    bf16 work buffer for a chunk of 64."""
     din = h * p
     xbc = torch.zeros(bs, s, offset + din + 2 * n, dtype=dtype)[..., offset:]
     xs, b, c = torch.split(xbc, [din, n, n], dim=-1)
@@ -363,7 +377,7 @@ def test_bshp_block_under_autograd_is_the_function():
     with torch.no_grad():
         assert ssd_chunked_bshp(*views, 16)[0].grad_fn is None
     with pytest.raises(ValueError, match="no backward"):
-        ssd_chunk_intra_bshp(*views, 16)
+        ssd_chunk_intra_heads(x.requires_grad_(), dt, a, b, c, 16)
 
 
 def bwd_views(bs, s, h, p, n, dtype, q=64, g=1, offset=0):
@@ -484,9 +498,10 @@ def test_bwd_wrapper_takes_the_functions_views(dtype, offset):
     """The autograd Function's backward through the backward wrapper on
     the model's views (xbc's rows shifted by `offset` elements): on the CPU
     the plain backward, written into the given views as into the
-    Function's own buffers (`ssd_chunk_intra_bshp_bwd`); and the
-    card's flow around the launch (dense copies, scratch, launch plan, the
-    splits' sum) with a stand-in for the kernel."""
+    Function's own buffers (`SSDChunked.backward`'s transposed views of
+    [B,S,...] tensors); and the card's flow around the launch (dense
+    copies, scratch, launch plan, the splits' sum) with a stand-in for the
+    kernel."""
     bs, s, h, p, n, q = 2, 128, 3, 16, 32, 64
     x, dt, a, b, c, _, _, _ = model_views(bs, s, h, p, n, dtype, offset)
     gen = torch.Generator().manual_seed(offset)
@@ -495,7 +510,6 @@ def test_bwd_wrapper_takes_the_functions_views(dtype, offset):
     a = -torch.rand(h, generator=gen)
     dy = torch.randn(bs, s, h, p, generator=gen).to(dtype)
     dst = torch.randn(bs, s // q, h, p, n, generator=gen)
-    bshp = (x.transpose(1, 2), dt.transpose(1, 2), a, b[:, 0], c[:, 0])
     views = (x, dt, a.expand(bs, h), b, c, dy.transpose(1, 2),
              dst.transpose(1, 2))
     dx = torch.empty(bs, s, h, p, dtype=dtype)
@@ -505,8 +519,9 @@ def test_bwd_wrapper_takes_the_functions_views(dtype, offset):
     _, _, da, _, _ = ssd_chunk_intra_bwd_heads(
         *views, q, dx=dx.transpose(1, 2), ddt=ddt.transpose(1, 2),
         db=db[:, None], dc=dc[:, None])
-    for got, want in zip((dx, ddt, da.sum(0), db, dc),
-                         ssd_chunk_intra_bshp_bwd(*bshp, dy, dst, q)):
+    for got, want in zip((dx.transpose(1, 2), ddt.transpose(1, 2), da,
+                          db[:, None], dc[:, None]),
+                         ssd_chunk_intra_bwd_reference(*views, q)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     launched = []
     dcum, dc_extra = torch.zeros(bs, h, s), torch.zeros(bs, 1, s, n)
@@ -534,7 +549,7 @@ def old_plain_chunked(x, dt, a, b, c, q, init=None):
     n = b.shape[-1]
     l = s // q
     cdt = x.dtype
-    y, st = ssd_chunk_intra_heads_reference(*heads_views(x, dt, a, b, c), q)
+    y, st = ssd_chunk_intra_heads_reference(*heads(x, dt, a, b, c), q)
     y_diag, states = y.transpose(1, 2), st.transpose(1, 2)
     da_cs = torch.cumsum((dt * a).reshape(bs, l, q, h), dim=2)
     chunk_decay = torch.exp(da_cs[:, :, -1, :])
@@ -660,7 +675,7 @@ def test_state_reference_in_bf16_rounds_where_the_model_did():
     ry, rf = old_plain_chunked(x, dt, a, b, c, 16, init)
     assert y.dtype == torch.bfloat16 and f.dtype == torch.float32
     assert torch.equal(y, ry) and torch.equal(f, rf)
-    yd, st = ssd_chunk_intra_heads_reference(*heads_views(x, dt, a, b, c), 16)
+    yd, st = ssd_chunk_intra_heads_reference(*heads(x, dt, a, b, c), 16)
     _, fin, ent, car, cs = ssd_state_reference(
         yd, st, dt.transpose(1, 2), a.expand(2, 3), c[:, None], 16, init)
     assert ent.dtype == torch.bfloat16 and torch.equal(ent, car.bfloat16())
@@ -841,7 +856,7 @@ def test_state_bwd_wrapper_takes_the_functions_views(dtype, offset):
     xbc[..., n:] = c.to(dtype)
     c = xbc[..., n:]
     y, st = ssd_chunk_intra_heads_reference(
-        *heads_views(x.to(dtype), dt, a, b.to(dtype), c), q)
+        *heads(x.to(dtype), dt, a, b.to(dtype), c), q)
     _, _, ent, car, cs = ssd_state_reference(
         y, st, dt.transpose(1, 2), a.expand(bs, h), c[:, None], q, init)
     dyh = dy.to(dtype).transpose(1, 2)

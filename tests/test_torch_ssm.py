@@ -3,10 +3,10 @@ CPU, with the same numpy inputs and the same weights (carried across by
 from_jax_params).
 
 On CPU tensors the SSD wrapper computes its plain version
-(repro_torch.kernels.ref.ssd_chunk_intra_reference); it is held here against
-the Pallas kernel in interpret mode over the sweep of tests/test_kernels.py,
-`y` and `states` both.  The CUDA kernel itself is held against the same plain
-version on the card by chip_smoke.py.
+(repro_torch.kernels.ref.ssd_chunk_intra_heads_reference); it is held here
+against the Pallas kernel in interpret mode over the sweep of
+tests/test_kernels.py, `y` and `states` both.  The CUDA kernel itself is
+held against the same plain version on the card by chip_smoke.py.
 
 Tolerances, float32 throughout unless stated:
 * SSD block: atol 1e-4 + rtol 1e-4 (the plain version sums cumsum(dt*a) in
@@ -14,7 +14,7 @@ Tolerances, float32 throughout unless stated:
   the decay, on outputs up to ~60); bf16 inputs: y within 1e-3 + 2**-7 of
   its size (one bf16 rounding of float32 values that agree to ~1e-5), states
   (float32) as above;
-* primitives (conv, segsum, sequential recurrence): 1e-5;
+* primitives (conv, sequential recurrence): 1e-5;
 * ssd_chunked, mamba2_forward, logits: 1e-4 (summation order).
 """
 import ctypes
@@ -38,7 +38,6 @@ from repro_torch.kernels import (SSD_BWD_KERNEL, SSD_KERNEL,
                                  build,
                                  ssd_chunk_intra, ssd_chunk_intra_heads,
                                  ssd_chunk_reference)
-from repro_torch.kernels.ops import ssd_chunk_intra_bshp
 from repro_torch.kernels.ssd_scan import ARGTYPES
 from repro_torch.models import build_model
 from repro_torch.models import hybrid as thy
@@ -137,22 +136,24 @@ def test_ssd_heads_layout_with_shared_b_c_views_equals_flat_layout():
     a = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(np.float32)))
     b, c = (torch.from_numpy(rng.standard_normal((bs, s, n)).astype(np.float32))
             for _ in range(2))
-    y, states = ssd_chunk_intra_bshp(x, dt, a, b, c, q)
-    assert y.shape == (bs, s, h, p) and states.shape == (bs, s // q, h, p, n)
-    flat = lambda t: t.transpose(1, 2).reshape(bs * h, s, -1)   # noqa: E731
+    views = (x.transpose(1, 2), dt.transpose(1, 2), a.expand(bs, h),
+             b[:, None], c[:, None])
+    y, states = ssd_chunk_intra_heads(*views, q)
+    assert y.shape == (bs, h, s, p) and states.shape == (bs, h, s // q, p, n)
     ry, rs = ssd_chunk_intra(
-        flat(x), dt.transpose(1, 2).reshape(bs * h, s), a.repeat(bs),
+        x.transpose(1, 2).reshape(bs * h, s, p),
+        dt.transpose(1, 2).reshape(bs * h, s), a.repeat(bs),
         b.repeat_interleave(h, 0), c.repeat_interleave(h, 0), q)
-    torch.testing.assert_close(flat(y), ry, rtol=0, atol=0)
-    torch.testing.assert_close(
-        states.transpose(1, 2).reshape(bs * h, s // q, p, n), rs,
-        rtol=0, atol=0)
-    # the out= form writes into the caller's views
-    y2 = torch.empty_like(y)
-    ssd_chunk_intra_heads(x.transpose(1, 2), dt.transpose(1, 2),
-                          a.expand(bs, h), b[:, None], c[:, None], q,
-                          y=y2.transpose(1, 2))
-    torch.testing.assert_close(y2, y, rtol=0, atol=0)
+    torch.testing.assert_close(y.reshape(bs * h, s, p), ry, rtol=0, atol=0)
+    torch.testing.assert_close(states.reshape(bs * h, s // q, p, n), rs,
+                               rtol=0, atol=0)
+    # the out= form writes into the caller's views of [B,S,H,P] tensors
+    y2 = torch.empty(bs, s, h, p)
+    st2 = torch.empty(bs, s // q, h, p, n)
+    ssd_chunk_intra_heads(*views, q, y=y2.transpose(1, 2),
+                          states=st2.transpose(1, 2))
+    torch.testing.assert_close(y2.transpose(1, 2), y, rtol=0, atol=0)
+    torch.testing.assert_close(st2.transpose(1, 2), states, rtol=0, atol=0)
 
 
 def test_ssd_wrapper_on_cpu_takes_plain_path_without_launch():
@@ -305,14 +306,47 @@ def test_ssd_chunked_gradients_stay_finite_when_the_decay_overflows():
         close(t.grad, r, 1e-3, 1e-4)
 
 
-def test_segsum_matches_jax():
-    rng = np.random.default_rng(8)
-    x = -np.abs(rng.standard_normal((2, 3, 16, 4))).astype(np.float32)
-    got = tssm._segsum(torch.from_numpy(x)).numpy()
-    ref = np.asarray(jssm._segsum(jnp.asarray(x)))
-    assert np.array_equal(np.isinf(got), np.isinf(ref))
-    fin = np.isfinite(ref)
-    np.testing.assert_allclose(got[fin], ref[fin], atol=PRIM_ATOL)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_chunked_bshp_makes_the_mixers_casts(monkeypatch, dtype,
+                                                 with_state):
+    """`ssd_chunked_bshp` takes the tensors as `mamba2_rank` makes them (x,
+    b, c in the compute dtype, dt and a float32, the SSM state float32)
+    and makes the dtype contract's casts itself: its y and final state
+    equal, bit for bit, those of a call whose inputs were cast first as
+    the model cast them (dt, a and the state to float32, b and c to x's
+    dtype), and those of a call with dt, a, b, c and the state in float64
+    (cast back exactly)."""
+    cfg = reduced_config("mamba2-780m")
+    seen = []
+    real = tssm.ssd_chunked_bshp
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+    monkeypatch.setattr(tssm, "ssd_chunked_bshp", spy)
+    gen = torch.Generator().manual_seed(11)
+    p = tssm.Mamba2(cfg, dtype=dtype)
+    tssm.init_mamba2(p, gen)
+    bs, s = 2, 2 * cfg.ssm_chunk
+    u = torch.randn(bs, s, cfg.d_model, generator=gen).to(dtype)
+    state = None
+    if with_state:
+        conv, ssm = tssm.init_ssm_state(cfg, bs, dtype, "cpu")
+        state = (conv, torch.randn(ssm.shape, generator=gen))
+    with torch.no_grad():
+        tssm.mamba2_forward(p, cfg, u, state)
+    (x, dt, a, b, c, chunk, init), = seen
+    assert x.dtype == b.dtype == c.dtype == dtype
+    assert dt.dtype == a.dtype == torch.float32
+    y, f = real(x, dt, a, b, c, chunk, init)
+    cast = real(x, dt.float(), a.float(), b.to(x.dtype), c.to(x.dtype), chunk,
+                None if init is None else init.float())
+    wide = real(x, dt.double(), a.double(), b.double(), c.double(), chunk,
+                None if init is None else init.double())
+    for ry, rf in (cast, wide):
+        assert ry.dtype == dtype and rf.dtype == torch.float32
+        assert torch.equal(y, ry) and torch.equal(f, rf)
 
 
 @pytest.mark.parametrize("s,with_state", [(11, False), (11, True),
