@@ -121,7 +121,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     --ckpt-every 3` through `run()`: finite losses, step
                     time, tokens/s, peak memory, the blockwise attention
                     path in every layer of every forward and recomputation
-                    (2 x 26 calls a step); the free disk space before the
+                    (2 x 26 calls a step), AdamW's kernel (a norm and an
+                    update launch a step, every element counted on its
+                    path, none on the loop's); the free disk space before the
                     checkpoint is written, its bytes and the seconds of its
                     save (device to host, write), wait and restore; restored
                     into a fresh state on the host, every leaf equal to the
@@ -220,7 +222,9 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     step, the block's and the state passes' forward twice
                     (remat) and their backward once (mamba2-780m: 96 / 48
                     each; zamba2-1.2b 76 / 38), and no plain
-                    version of any of the SSD's four steps runs.  The
+                    version of any of the SSD's four steps runs; AdamW's
+                    kernel a norm and an update launch a step, every
+                    element counted on its path, none on the loop's.  The
                     supervisor's checkpoint writes are recorded, not made
                     (phases 9 and 17 measure them).
 31. train_families_vs_cpu
@@ -253,7 +257,15 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     gemma2-2b's two train steps
                     and one mamba2-780m step of 2 x 512 through
                     `launch.train.run` on the mesh (FSDP+TP placements)
-                    against the plain launch within TRAIN_LOSS_RTOL; the
+                    against the plain launch on AdamW's loop within
+                    TRAIN_LOSS_RTOL, no AdamW kernel launch on either; the
+                    plain launch on AdamW's kernel beside them: a norm and
+                    an update launch a step, every element through it, the
+                    first loss equal to the loop leg's, the first norm no
+                    farther from its float64 norm than half an ulp, every
+                    norm within ADAMW_NORM_RTOL of float64, and every 4th
+                    tensor's p, mu, nu torch.equal to the loop from the
+                    kernel's scale at every step; the
                     per-rank bytes of mixtral-8x7b's serving at TP 2 and 4
                     and qwen3-8b's training state at (2, 2), reckoned on the
                     meta device.
@@ -301,6 +313,22 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
                     schedule_explorer's programs run on stacked ranks
                     (chunk_accum launches > 0 for quickstart), serve_lm's
                     6 requests, train_lm's 200 steps; each one's seconds.
+38. adamw          the optimizer's multi-tensor kernel (kernels/adamw.py,
+                    csrc/adamw.cu) against its loop (`optimizer._loop`),
+                    from the kernel's own clip scale, over 3 steps (the
+                    gradients drawn at scales 1, 1e-5 and 1e-3: clipped,
+                    not, clipped) on mamba2-780m's 434 float32 masters from
+                    `init_train_state` and on odd sizes (1, 3, 7, 4097,
+                    2^20 + 5 elements, 1-D and 2-D; once 16-byte aligned
+                    and once 4 bytes off, the scalar path) and on one
+                    real train step's gradients (mamba2-780m, bf16, remat,
+                    2 x 1024; the kernel launched with no sync after the
+                    backward pass): p, mu and nu torch.equal; the kernel's norm within ADAMW_NORM_RTOL of
+                    a float64 sum and no farther from it than
+                    `global_norm`; launches a step (<= 3); 3 steps through
+                    `adamw_update` (the counter, host ms a call); device ms
+                    a step from a CUDA graph beside the bytes bound and the
+                    loop's (norm, clamp and loop) in the same process.
 
 Phase 3 also holds flash against its plain version at the serving shapes
 of the vlm and audio families (FAMILY_FLASH) and times them, and gives
@@ -315,6 +343,7 @@ last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import datetime
@@ -497,7 +526,8 @@ def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
-    names = ("flash_attention", "chunk_accum", "ssd_chunk", "ssd_state")
+    names = ("flash_attention", "chunk_accum", "ssd_chunk", "ssd_state",
+             "adamw")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         built = list(pool.map(lambda n: build.build(n, force=True), names))
@@ -2071,10 +2101,11 @@ def _fresh_host_state(name: str):
 def phase_train_long(seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
-                                     SSD_KERNEL)
+                                     SSD_KERNEL, adamw)
     from repro_torch.launch import train as launch_train
     from repro_torch.models.attention import BLOCKWISE
     from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import UPDATED
     cfg = get_config(TRAIN_LONG_ARGV[1])
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_long_")
     argv = TRAIN_LONG_ARGV + ["--device", DEV, "--seed", str(seed),
@@ -2092,6 +2123,8 @@ def phase_train_long(seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     FLASH_KERNEL.launches = CHUNK_ACCUM_KERNEL.launches = 0
     SSD_KERNEL.launches = BLOCKWISE.calls = 0
+    adamw.NORM_KERNEL.launches = adamw.UPDATE_KERNEL.launches = 0
+    updated = UPDATED.kernel, UPDATED.loop
     keep = {}
     try:
         t0 = time.perf_counter()
@@ -2100,7 +2133,11 @@ def phase_train_long(seed: int) -> dict:
         blockwise = BLOCKWISE.calls
         launches = dict(flash_attention=FLASH_KERNEL.launches,
                         chunk_accum=CHUNK_ACCUM_KERNEL.launches,
-                        ssd_chunk=SSD_KERNEL.launches)
+                        ssd_chunk=SSD_KERNEL.launches,
+                        adamw_norm=adamw.NORM_KERNEL.launches,
+                        adamw_update=adamw.UPDATE_KERNEL.launches)
+        adamw_elements = (UPDATED.kernel - updated[0],
+                          UPDATED.loop - updated[1])
         peak = torch.cuda.max_memory_allocated() / 1e9
         saved = dict(checkpoint.timings)
         assert checkpoint.all_steps(ckpt) == [args.steps]
@@ -2127,9 +2164,13 @@ def phase_train_long(seed: int) -> dict:
     assert len(records) == args.steps
     assert all(math.isfinite(l) for l in losses), losses
     # every attention layer of every forward and of its recomputation in
-    # the backward went blockwise; autograd launches no kernel
+    # the backward went blockwise; autograd launches no kernel; AdamW its
+    # norm and update once a step, every element through them
     assert blockwise == 2 * cfg.num_layers * args.steps, blockwise
-    assert not any(launches.values()), launches
+    assert launches == dict(flash_attention=0, chunk_accum=0, ssd_chunk=0,
+                            adamw_norm=args.steps,
+                            adamw_update=args.steps), launches
+    assert adamw_elements == (n_params * args.steps, 0), adamw_elements
     steady = records[1:]
     res = dict(command="repro_torch.launch.train " + " ".join(argv),
                layers=cfg.num_layers, d_model=cfg.d_model,
@@ -2143,7 +2184,9 @@ def phase_train_long(seed: int) -> dict:
                / sum(r["seconds"] for r in steady),
                blockwise_calls=blockwise,
                blockwise_calls_expected="2 x layers x steps",
-               kernel_launches=launches, max_memory_allocated_gb=peak,
+               kernel_launches=launches,
+               adamw_elements_kernel_loop=adamw_elements,
+               max_memory_allocated_gb=peak,
                wall_s=wall, checkpoint_step=args.steps,
                checkpoint_bytes=saved.get("bytes"),
                checkpoint_leaves=leaves, reduced=None,
@@ -2876,17 +2919,22 @@ def phase_train_families(seed: int) -> dict:
     every kernel's launches a step: under autograd attention takes its
     plain path, the chunked SSD its kernels (the block's and the state
     passes' forward twice a Mamba2 layer with remat, their backward once),
-    and no plain version of any of its four steps runs."""
+    and no plain version of any of its four steps runs; AdamW takes its
+    kernel (one norm and one update launch a step, every element counted
+    on its path, none on the loop's)."""
     import repro_torch.configs as configs
     from repro_torch.kernels import (CHUNK_ACCUM_KERNEL, FLASH_KERNEL,
                                      SSD_BWD_KERNEL, SSD_KERNEL,
                                      SSD_STATE_BWD_KERNEL, SSD_STATE_KERNEL,
-                                     ssd_scan, ssd_state)
+                                     adamw, ssd_scan, ssd_state)
     from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import UPDATED
     kernels = {"flash_attention": FLASH_KERNEL, "ssd_chunk": SSD_KERNEL,
                "ssd_chunk_bwd": SSD_BWD_KERNEL, "ssd_state": SSD_STATE_KERNEL,
                "ssd_state_bwd": SSD_STATE_BWD_KERNEL,
-               "chunk_accum": CHUNK_ACCUM_KERNEL}
+               "chunk_accum": CHUNK_ACCUM_KERNEL,
+               "adamw_norm": adamw.NORM_KERNEL,
+               "adamw_update": adamw.UPDATE_KERNEL}
     get_config = configs.get_config
     # the plain versions of all four steps, forward and backward: none runs
     plain = [(ssd_scan, "ssd_chunk_intra_heads_reference"),
@@ -2916,6 +2964,7 @@ def phase_train_families(seed: int) -> dict:
             setattr(mod, attr, counting(fn))
         plain_calls.clear()
         before = {k: kn.launches for k, kn in kernels.items()}
+        updated = UPDATED.kernel, UPDATED.loop
         t0 = time.perf_counter()
         try:
             keep = {}
@@ -2939,8 +2988,13 @@ def phase_train_families(seed: int) -> dict:
         mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
         assert per_step == {"flash_attention": 0, "ssd_chunk": 2 * mamba,
                             "ssd_chunk_bwd": mamba, "ssd_state": 2 * mamba,
-                            "ssd_state_bwd": mamba, "chunk_accum": 0}, \
+                            "ssd_state_bwd": mamba, "chunk_accum": 0,
+                            "adamw_norm": 1, "adamw_update": 1}, \
             (name, per_step)
+        adamw_elements = (UPDATED.kernel - updated[0],
+                          UPDATED.loop - updated[1])
+        assert adamw_elements == (n_params * len(records), 0), \
+            (name, adamw_elements)
         assert not plain_calls, (name, len(plain_calls))
         losses = [r["loss"] for r in records]
         assert len(records) == 3 and all(math.isfinite(l) for l in losses), \
@@ -2965,6 +3019,7 @@ def phase_train_families(seed: int) -> dict:
                    steady_positions_per_s=batch * (seq + frontend)
                    * len(steady) / sum(r["seconds"] for r in steady),
                    launches_per_step=per_step,
+                   adamw_elements_kernel_loop=adamw_elements,
                    plain_ssd_calls=len(plain_calls),
                    max_memory_allocated_gb=torch.cuda.max_memory_allocated()
                    / 1e9, wall_s=wall,
@@ -3036,6 +3091,7 @@ def phase_families_entry_point() -> None:
 # --------------------------------------------------------------------- #
 
 MESH1_TRAIN_STEPS = 2
+ADAMW_SPY_EVERY = 4    # phase 33's kernel leg: every 4th tensor held
 CARDS_ARGV: list = []         # flags added to every run of phase 34
 MESH1_LOGITS_ATOL = 2e-2      # bf16, the flash tolerance, if not torch.equal
 RANK_BYTES = [("mixtral-8x7b", {"data": 1, "model": 2}, False),
@@ -3141,42 +3197,141 @@ def _serve_both(args, mesh, prompts, model, kernels) -> dict:
                 first_logits_max_abs_diff=logits_err)
 
 
+class _AdamWSpy:
+    """Around every `adamw_update` of the train step (`train_step`'s name
+    for it): the gradients' float64 norm, then, after the update, every
+    ADAMW_SPY_EVERY-th parameter's p, mu and nu, copied before it, updated
+    by the loop from the clip scale of the update's own norm.  `calls`: per
+    update the norm, its float64 sum and the tensors held, and the names of
+    those not torch.equal to the loop's."""
+
+    def __enter__(self):
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train import train_step
+        self.calls, self._mod = [], train_step
+        real = self._real = train_step.adamw_update
+
+        def spy(cfg, grads, state, params):
+            named = list(params.named_parameters())[::ADAMW_SPY_EVERY]
+            ref = math.sqrt(sum(float(c.double().square().sum())
+                                for g in grads.values()
+                                for c in g.detach().reshape(-1).split(
+                                    1 << 24)))
+            copies = [(n, p.detach().clone(), state.mu[n].clone(),
+                       state.nu[n].clone()) for n, p in named]
+            lr = opt.lr_schedule(cfg, state.step)
+            b1c, b2c = opt._bias_corrections(cfg, state.step + 1)
+            out = real(cfg, grads, state, params)
+            gnorm = out[2]["grad_norm"]
+            scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+            unequal = []
+            for (n, p), (_, lp, mu, nu) in zip(named, copies):
+                opt._loop(cfg, {n: grads[n]}, opt.AdamWState(
+                    0, {n: mu}, {n: nu}), [(n, lp)], scale, lr, b1c, b2c)
+                for key, a, b in (("p", p, lp), ("mu", state.mu[n], mu),
+                                  ("nu", state.nu[n], nu)):
+                    if not torch.equal(a, b):
+                        unequal.append([n, key])
+            self.calls.append(dict(gnorm=float(gnorm), float64=ref,
+                                   held=len(copies), unequal=unequal))
+            return out
+        train_step.adamw_update = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.adamw_update = self._real
+
+
 def _train_both(argv: list, mesh, kernels) -> dict:
     """`launch.train.run` of `argv` on the plain path and on `mesh` (FSDP+TP
     placements), each with every kernel's count from 0: losses within
     TRAIN_LOSS_RTOL of each other, finite, the same launches on both, and
     no flash or chunk_accum launch (under autograd attention takes its
-    plain path; the SSD block its forward and backward kernels)."""
+    plain path; the SSD block its forward and backward kernels).  Both run
+    AdamW's loop: the plain path with `optimizer._on_kernel` patched, since
+    the kernel's clip scale is the correctly rounded norm, one float32 ulp
+    from `global_norm`'s on gemma2-2b, and two bf16 steps turn that ulp
+    into a 4.6e-5 gap of the second loss.  The plain path on the kernel,
+    its default, runs too (`plain_kernel`) and is held to what it must
+    give: a norm and an update launch a step and none on the loop legs,
+    every element through the kernel, the first loss equal to the loop
+    leg's (nothing updated yet), the first norm within half a float32 ulp
+    of the gradients' float64 norm and so no farther from `global_norm`'s
+    than that ulp and `global_norm`'s own error, and at every step the
+    kernel's norm within ADAMW_NORM_RTOL of float64 and every
+    ADAMW_SPY_EVERY-th tensor's p, mu and nu torch.equal to the loop's
+    from the kernel's scale (`_AdamWSpy`)."""
+    from repro_torch.kernels import adamw
     from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer
+    kernels = dict(kernels, adamw_norm=adamw.NORM_KERNEL,
+                   adamw_update=adamw.UPDATE_KERNEL)
     train = {}
-    for path in ("plain", "mesh"):
+    on_kernel = optimizer._on_kernel
+    for path in ("plain_kernel", "plain", "mesh"):
         ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for k in kernels.values():
             k.launches = 0
+        updated = optimizer.UPDATED.kernel, optimizer.UPDATED.loop
+        if path == "plain":
+            optimizer._on_kernel = lambda named: False
+        spy = _AdamWSpy() if path == "plain_kernel" else \
+            contextlib.nullcontext()
+        keep = {}
         try:
-            with _SkipCheckpointWrites():
+            with _SkipCheckpointWrites(), spy:
                 records = launch_train.run(
                     launch_train.build_parser().parse_args(
                         argv + ["--ckpt-dir", ckpt]),
-                    mesh=mesh if path == "mesh" else None)
+                    keep=keep, mesh=mesh if path == "mesh" else None)
+            n_params = sum(p.numel() for p in keep["state"][0].parameters())
+            del keep
         finally:
+            optimizer._on_kernel = on_kernel
             shutil.rmtree(ckpt, ignore_errors=True)
         train[path] = dict(
             launches={name: k.launches for name, k in kernels.items()},
             losses=[r["loss"] for r in records],
+            grad_norms=[r["grad_norm"] for r in records],
+            adamw_elements_kernel_loop=(
+                optimizer.UPDATED.kernel - updated[0],
+                optimizer.UPDATED.loop - updated[1]),
             step_s=[r["seconds"] for r in records],
             max_memory_allocated_gb=torch.cuda.max_memory_allocated()
             / 1e9)
+        if path == "plain_kernel":
+            train[path]["adamw_calls"] = spy.calls
+            train[path]["params"] = n_params
     loss_err = max(abs(a - b) / abs(a) for a, b in zip(
         train["plain"]["losses"], train["mesh"]["losses"]))
     assert all(math.isfinite(l) for l in train["mesh"]["losses"])
     assert train["mesh"]["launches"] == train["plain"]["launches"]
     assert not train["mesh"]["launches"]["flash_attention"] and \
         not train["mesh"]["launches"]["chunk_accum"]
+    assert not train["plain"]["launches"]["adamw_norm"] and \
+        not train["plain"]["launches"]["adamw_update"]
     assert loss_err <= TRAIN_LOSS_RTOL, loss_err
     torch.cuda.empty_cache()
+    kernel, plain = train["plain_kernel"], train["plain"]
+    steps = len(kernel["losses"])
+    assert kernel["launches"] == dict(plain["launches"], adamw_norm=steps,
+                                      adamw_update=steps), kernel["launches"]
+    assert kernel["adamw_elements_kernel_loop"] == \
+        (kernel["params"] * steps, 0), kernel["adamw_elements_kernel_loop"]
+    assert kernel["losses"][0] == plain["losses"][0], \
+        (kernel["losses"], plain["losses"])
+    calls = kernel["adamw_calls"]
+    assert len(calls) == steps and all(
+        c["held"] and not c["unequal"] for c in calls), calls
+    assert all(abs(c["gnorm"] - c["float64"]) <= ADAMW_NORM_RTOL
+               * c["float64"] for c in calls), calls
+    ref = calls[0]["float64"]
+    half_ulp = float(np.spacing(np.float32(ref))) / 2
+    assert abs(kernel["grad_norms"][0] - plain["grad_norms"][0]) <= \
+        abs(plain["grad_norms"][0] - ref) + half_ulp, (calls[0], plain)
+    assert all(math.isfinite(l) for l in kernel["losses"])
     return dict(max_rel_loss_err=loss_err, loss_rtol=TRAIN_LOSS_RTOL,
                 **train)
 
@@ -3664,6 +3819,238 @@ def phase_examples() -> dict:
     return res
 
 
+# phase 38: AdamW on the multi-tensor kernel against the loop
+ADAMW_ODD = [(1,), (3,), (7,), (4097,), (2 ** 20 + 5,), (3, 7), (4097, 3),
+             (5, 2 ** 12)]
+ADAMW_STDS = (1.0, 1e-5, 1e-3)    # the three steps' gradient scales
+ADAMW_NORM_RTOL = 2.0 ** -20      # the kernel's norm against float64
+
+
+def _off(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t starting `offset` floats into a buffer of its
+    own (offset 1: 4 bytes off 16)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _adamw_vs_loop(params: dict, seed: int, offset: int = 0) -> dict:
+    """Three steps of the kernel on `params` (name -> float32 tensor on the
+    card, updated in place) and of the loop on copies, the loop from the
+    kernel's scale; moments and gradients `offset` floats into their
+    buffers.  Per step: torch.equal counts, the norms against float64,
+    launches, and whether the kernel's scale is the loop's clamp of its
+    norm."""
+    from repro_torch.kernels import adamw as K
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import optimizer as opt
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=1000)
+    loop_p = {n: p.clone() for n, p in params.items()}
+
+    def moments():
+        return {n: _off(torch.zeros_like(p), offset)
+                for n, p in params.items()}
+    mu_k, nu_k, mu_l, nu_l = moments(), moments(), moments(), moments()
+    loop_state = opt.AdamWState(0, mu_l, nu_l)
+    loop_named = list(loop_p.items())
+    gen = torch.Generator(DEV).manual_seed(seed)
+    steps = []
+    for k, std in enumerate(ADAMW_STDS):
+        grads = {n: _off(torch.randn(p.shape, device=DEV, generator=gen)
+                         * std, offset) for n, p in params.items()}
+        ref = math.sqrt(sum(float(g.double().square().sum())
+                            for g in grads.values()))
+        plain = float(opt.global_norm(grads))
+        lr = opt.lr_schedule(cfg, k)
+        b1c, b2c = opt._bias_corrections(cfg, k + 1)
+        entries = [(n, p, grads[n], mu_k[n], nu_k[n])
+                   for n, p in params.items()]
+        before = K.NORM_KERNEL.launches + K.UPDATE_KERNEL.launches
+        out, _ = K.step(entries, cfg.grad_clip, K.constants(
+            cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay, lr, b1c, b2c))
+        launches = K.NORM_KERNEL.launches + K.UPDATE_KERNEL.launches - before
+        clamp = torch.clamp(cfg.grad_clip / (out[0] + 1e-9), max=1.0)
+        scale_is_clamp = bool(torch.equal(clamp, out[1]))
+        opt._loop(cfg, grads, loop_state, loop_named, out[1], lr, b1c, b2c)
+        unequal = {key: [n for n in params if not torch.equal(a[n], b[n])]
+                   for key, a, b in (("p", params, loop_p), ("mu", mu_k, mu_l),
+                                     ("nu", nu_k, nu_l))}
+        gnorm = float(out[0])
+        steps.append(dict(
+            std=std, gnorm=gnorm, float64=ref, global_norm=plain,
+            rel_err=abs(gnorm - ref) / ref,
+            global_norm_rel_err=abs(plain - ref) / ref,
+            scale=float(out[1]), scale_is_clamp=scale_is_clamp,
+            launches=launches,
+            unequal={k: v[:5] for k, v in unequal.items()},
+            unequal_counts={k: len(v) for k, v in unequal.items()}))
+        del grads
+    return dict(tensors=len(params), elements=sum(p.numel() for p in
+                                                  params.values()),
+                steps=steps)
+
+
+def _adamw_time(params: dict, seed: int) -> dict:
+    """Device ms of one step from a CUDA graph (eager in `*_eager_ms`), the
+    kernel's (norm and update) and the loop's (global_norm, the clamp and
+    the loop) on the same tensors, beside the bytes bound (the update's 28
+    bytes a parameter, the norm's 4)."""
+    from repro_torch.kernels import adamw as K
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train import optimizer as opt
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=1000)
+    gen = torch.Generator(DEV).manual_seed(seed)
+    grads = {n: torch.randn(p.shape, device=DEV, generator=gen)
+             for n, p in params.items()}
+    mu = {n: torch.zeros_like(p) for n, p in params.items()}
+    nu = {n: torch.zeros_like(p) for n, p in params.items()}
+    entries = [(n, p, grads[n], mu[n], nu[n]) for n, p in params.items()]
+    consts = K.constants(cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay, 1e-4,
+                         0.1, 0.05)
+    named = list(params.items())
+    state = opt.AdamWState(0, mu, nu)
+
+    def kernel():
+        K.step(entries, cfg.grad_clip, consts)
+
+    def loop():
+        gnorm = opt.global_norm(grads)
+        scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+        opt._loop(cfg, grads, state, named, scale, 1e-4, 0.1, 0.05)
+    n = sum(p.numel() for p in params.values())
+    res = dict(elements=n, bound_ms=32 * n / PEAK_BYTES * 1e3,
+               bound_by="bytes")
+    for name, fn in (("kernel", kernel), ("loop", loop)):
+        res[f"{name}_eager_ms"] = cuda_ms(fn, iters=5, warmup=2)
+        res[f"{name}_ms"] = graph_ms(fn, calls=1, iters=5)
+        torch.cuda.empty_cache()
+    return res
+
+
+def _adamw_through_update(params: dict, seed: int) -> dict:
+    """Three steps through `adamw_update` on the masters: the kernel path's
+    element count and launches a step, and the host ms of each call (no
+    sync inside it)."""
+    from repro_torch.kernels import adamw as K
+    from repro_torch.train import AdamWConfig, adamw_update
+    from repro_torch.train import optimizer as opt
+    module = torch.nn.ParameterDict({n.replace(".", "/"): torch.nn.Parameter(
+        p, requires_grad=False) for n, p in params.items()})
+    state = opt.init_adamw(module)
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=1000)
+    gen = torch.Generator(DEV).manual_seed(seed)
+    host_ms, counted, launches = [], [], []
+    for _ in range(3):
+        grads = {n: torch.randn(p.shape, device=DEV, generator=gen)
+                 for n, p in module.named_parameters()}
+        torch.cuda.synchronize()
+        k0, l0 = opt.UPDATED.kernel, (K.NORM_KERNEL.launches
+                                      + K.UPDATE_KERNEL.launches)
+        t0 = time.perf_counter()
+        _, state, metrics = adamw_update(cfg, grads, state, module)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        counted.append(opt.UPDATED.kernel - k0)
+        launches.append(K.NORM_KERNEL.launches + K.UPDATE_KERNEL.launches
+                        - l0)
+        assert metrics["grad_norm"].device.type == torch.device(DEV).type
+        del grads
+    return dict(host_ms=host_ms, elements=counted, launches=launches)
+
+
+def _adamw_trained(seed: int) -> dict:
+    """One train step's own gradients (mamba2-780m at full width, bf16
+    compute, remat, 2 x 1024 tokens): the kernel's step on the masters
+    launched right after `loss_and_grad`, with no sync, then the loop from
+    the kernel's scale on copies of the masters taken before it: p, mu
+    and nu torch.equal (a read of the gradients before the backward pass
+    is done would show here)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as K
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   init_train_state, loss_and_grad)
+    from repro_torch.train import optimizer as opt
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg, remat=True)
+    params, state = init_train_state(model, seed, DEV)
+    tc = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                           total_steps=1000),
+                     compute_dtype=torch.bfloat16)
+    o = tc.optimizer
+    gen = torch.Generator(DEV).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1024), device=DEV,
+                         generator=gen)
+    _, grads, _ = loss_and_grad(model, params, {"tokens": toks}, tc)
+    named = [(n, p.detach()) for n, p in params.named_parameters()]
+    masters = {n: p.clone() for n, p in named}
+    lr = opt.lr_schedule(o, 0)
+    b1c, b2c = opt._bias_corrections(o, 1)
+    out, _ = K.step([(n, p, grads[n], state.mu[n], state.nu[n])
+                     for n, p in named], o.grad_clip,
+                    K.constants(o.b1, o.b2, o.eps, o.weight_decay, lr, b1c,
+                                b2c))
+    torch.cuda.synchronize()
+    plain = float(opt.global_norm(grads))
+    unequal = []
+    for n, p in named:
+        mu, nu, lp = (torch.zeros_like(p), torch.zeros_like(p),
+                      masters.pop(n))
+        opt._loop(o, {n: grads[n]}, opt.AdamWState(0, {n: mu}, {n: nu}),
+                  [(n, lp)], out[1], lr, b1c, b2c)
+        for key, a, b in (("p", p, lp), ("mu", state.mu[n], mu),
+                          ("nu", state.nu[n], nu)):
+            if not torch.equal(a, b):
+                unequal.append([n, key, int((a != b).sum()),
+                                float((a - b).abs().max())])
+    del params, state, grads
+    torch.cuda.empty_cache()
+    return dict(tensors=len(named), gnorm=float(out[0]), global_norm=plain,
+                scale=float(out[1]), unequal=unequal[:10],
+                unequal_count=len(unequal))
+
+
+def phase_adamw(seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw
+    from repro_torch.models import build_model
+    from repro_torch.train import init_train_state
+    adamw.NORM_KERNEL.launches = adamw.UPDATE_KERNEL.launches = 0
+    gen = torch.Generator(DEV).manual_seed(seed)
+    odd = {f"odd{i}": torch.randn(s, device=DEV, generator=gen)
+           for i, s in enumerate(ADAMW_ODD)}
+    res = dict(odd=_adamw_vs_loop(odd, seed),
+               odd_off=_adamw_vs_loop({n: _off(p, 1) for n, p in
+                                       odd.items()}, seed, offset=1),
+               trained=_adamw_trained(seed))
+    params, _ = init_train_state(build_model(get_config("mamba2-780m")),
+                                 seed, DEV)
+    masters = {n: p.detach() for n, p in params.named_parameters()}
+    del params
+    res["mamba2"] = _adamw_vs_loop(masters, seed)
+    torch.cuda.empty_cache()
+    res["update"] = _adamw_through_update(masters, seed)
+    res["time"] = _adamw_time(masters, seed)
+    del masters
+    torch.cuda.empty_cache()
+    res.update(adamw_norm=adamw.NORM_KERNEL.launches,
+               adamw_update=adamw.UPDATE_KERNEL.launches)
+    emit("adamw", **res)
+    assert not res["trained"]["unequal_count"], res["trained"]
+    for case in ("odd", "odd_off", "mamba2"):
+        for st in res[case]["steps"]:
+            assert not any(st["unequal_counts"].values()), (case, st)
+            assert st["rel_err"] <= ADAMW_NORM_RTOL, (case, st)
+            assert abs(st["gnorm"] - st["float64"]) <= \
+                abs(st["global_norm"] - st["float64"]), (case, st)
+            assert st["launches"] <= 3 and st["scale_is_clamp"], (case, st)
+    n = res["mamba2"]["elements"]
+    assert res["update"]["elements"] == [n] * 3, res["update"]
+    assert all(k <= 3 for k in res["update"]["launches"]), res["update"]
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3718,6 +4105,7 @@ def main() -> int:
     dry = phase_dryrun_cards()
     measured = phase_roofline_measured(args.seed)
     examples = phase_examples()
+    adamw = phase_adamw(args.seed)
     # the later slices' paths, each counted from 0 just before it
     paths = {name: {"train_long": n} for name, n in
              long["kernel_launches"].items()}
@@ -3750,6 +4138,12 @@ def main() -> int:
     for name, by_example in examples["launches"].items():
         for example, n in by_example.items():
             paths[name][f"examples_{example}"] = n
+    for name in ("adamw_norm", "adamw_update"):
+        for cell in ("train", "ssm_train"):
+            for path in ("plain_kernel", "plain", "mesh"):
+                paths[name][f"model_parallel_mesh1_{cell}_{path}"] = \
+                    mesh1[cell][path]["launches"][name]
+        paths[name]["adamw"] = adamw[name]
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -3813,7 +4207,23 @@ def main() -> int:
         "bound_ms": ssd["state_train"][part]["bound_ms"],
         "bound_by": ssd["state_train"][part]["bound_by"],
         "library_ms": None} for name, part in (
-            ("ssd_state", "forward"), ("ssd_state_bwd", "backward"))]}))
+            ("ssd_state", "forward"), ("ssd_state_bwd", "backward"))] + [{
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": None,
+        "launches": {part: fam_train["launches"][f"adamw_{part}"]
+                     for part in ("norm", "update")},
+        "launches_by_path": {part: paths[f"adamw_{part}"]
+                             for part in ("norm", "update")},
+        "bit_equal_to_loop": True,
+        "norm_rel_err": max(st["rel_err"] for st in
+                            adamw["mamba2"]["steps"]),
+        "held_against_plain": True,
+        "ms": adamw["time"]["kernel_ms"],
+        "plain_ms": adamw["time"]["loop_ms"],
+        "bound_ms": adamw["time"]["bound_ms"],
+        "bound_by": adamw["time"]["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

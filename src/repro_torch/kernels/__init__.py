@@ -9,6 +9,9 @@
                      second entry point, replaces none)
     ssd_state        csrc/ssd_state.cu        (steps 3 and 4 of the chunked
                      SSD, forward and backward; replace no Pallas kernel)
+    adamw            csrc/adamw.cu            (AdamW's global norm and
+                     update over every tensor, two launches; replaces no
+                     Pallas kernel: `train/optimizer.py` calls it)
 
 Kernels build with nvcc at first launch (`build.py`), never at import.
 flash_attention, ssd_chunk and ssd_state (forward and backward) run

@@ -181,8 +181,9 @@ def _placed_batch(local: Dict, global_batch: int, mesh) -> Dict:
 def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
         keep: Optional[dict] = None, mesh=None) -> List[Dict[str, float]]:
     """Train on this rank under the supervisor; returns one record per step
-    run, replays included (step, loss, token loss, seconds, text tokens of
-    the global batch).  `keep`, if given, receives the final "state".
+    run, replays included (step, loss, token loss, grad norm, seconds, text
+    tokens of the global batch).  `keep`, if given, receives the final
+    "state".
     With world > 1 under --collectives torch, or a `mesh` given (a
     ("data", "model") DeviceMesh; a 1 x 1 mesh runs the placed path on one
     card), params, AdamW state and batch are DTensors."""
@@ -275,13 +276,13 @@ def run(args: argparse.Namespace, rank: int = 0, world: int = 1,
         params, opt, metrics = live["step"](*state, batch)
         loss = float(metrics["loss"])           # waits for the step
         seconds = time.perf_counter() - t0
+        gnorm = float(metrics["grad_norm"])
         records.append(dict(step=step, loss=loss,
                             token_loss=float(metrics["token_loss"]),
-                            seconds=seconds,
+                            grad_norm=gnorm, seconds=seconds,
                             tokens=args.global_batch * args.seq))
-        say(f"step {step}: loss {loss:.6f} grad_norm "
-            f"{float(metrics['grad_norm']):.4f} ({seconds:.3f} s)",
-            flush=True)
+        say(f"step {step}: loss {loss:.6f} grad_norm {gnorm:.4f} "
+            f"({seconds:.3f} s)", flush=True)
         return (params, opt), metrics
 
     def on_link_fault(fault):
